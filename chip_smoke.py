@@ -34,13 +34,38 @@ Phases (any failure raises and the script exits non-zero):
      through the plain versions (loss rtol 1e-4, every gradient leaf rtol
      2e-3 / atol 2e-4); then bf16 on the card, kernels against
      `pallas_train: false` (loss within 1e-2 relative);
-  7. train main path: chunk files written from seed 7, then the `train`
-     command with the default config at full width (bf16, batch 512,
-     `pallas_train: core`), two epochs of 20 steps; forward launches must be
-     2 x (train + valid steps) and backward launches 2 x train steps, every
-     logged loss finite, the validation loss lower at the end than for the
-     initial parameters, the checkpoint files present, model.npz loading and
-     running one predict_step, and `--resume` starting at the saved epoch.
+  7. train path at `pallas_train: core`: chunk files written from seed 7,
+     then the `train` command at full width (bf16, batch 512), one epoch of
+     10 steps; core forward launches must be 2 x (train + valid steps) and
+     backward launches 2 x train steps, every logged loss finite, the
+     checkpoint files present, model.npz validating at the logged loss and
+     running one predict_step;
+  8. whole-block training kernels vs plain: forward and backward at
+     (512, 250, 64) and a ragged (3, 37, 64), 8 heads, with dropout scales
+     (rate 0.2) and without, weights from seed 7. f32: forward rtol 1e-4 /
+     atol 1e-5, gx rtol 1e-3 / atol 1e-5·max(1, max|plain|), each weight
+     gradient rtol 2e-3 / atol 1e-4·max(1, max|plain|). bf16: forward within
+     4 bf16 ULPs of max(1, max|plain|), gx within 8, each weight gradient
+     within 2e-2·max(1, max|plain|). At the training shape a pre-activation
+     within rounding of 0 can flip its relu mask between two summation
+     orders, which moves that row's gradients by a whole term: there gx may
+     miss its bar on <= 1e-4 of its entries and an f32 weight gradient on
+     <= 2 % of a leaf, every entry staying within 0.25·max(1, max|plain|)
+     (gx) and 1e-2·max(1, max|plain|) (weights); at the ragged shape every
+     entry meets the bar. The underflow input finite in both directions; the
+     backward run twice bit-equal; median times of each kernel and its plain
+     version in both dtypes;
+  9. one train step at `pallas_train: block`: as phase 6, with block launches
+     exactly (2, 2) and no core launch; then bf16 on the card, `auto` (which
+     must pick the block rung) against `pallas_train: false`;
+ 10. train main path: the `train` command with the default config and no
+     `pallas_train` override (bf16, batch 512, Adam, warmup_cosine, clip 1.0,
+     dropout 0.2), two epochs of 20 steps + 2 validation steps; block forward
+     launches must be 2 x (train + valid steps), backward launches 2 x train
+     steps and core launches 0, every logged loss finite, the validation loss
+     lower at the end than for the initial parameters, the checkpoint files
+     present, model.npz loading and running one predict_step, and `--resume`
+     running exactly the third epoch.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches on its main path, error, times and bound (the least time the card
@@ -68,6 +93,7 @@ R10 = ROOT / "assets" / "bench-weights-R10.npz"
 BATCH = 1024  # predict batch (chunks)
 TRAIN_BATCH = 512
 TRAIN_STEPS = 20  # per epoch on the train main path
+CORE_STEPS = 10  # the one epoch of the `pallas_train: core` path
 VALID_STEPS = 2
 SEED = 7
 
@@ -101,6 +127,12 @@ def median_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def outside(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
+    """The share of entries with |got - ref| > atol + rtol·|ref|."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() > atol + rtol * ref.abs()).float().mean().item()
+
+
 def bf16_tol(ref: torch.Tensor) -> float:
     return 4 * 2.0 ** -8 * max(1.0, ref.float().abs().max().item())
 
@@ -129,6 +161,19 @@ def core_work(B: int, L: int, dtype: torch.dtype, backward: bool):
     size = torch.finfo(dtype).bits // 8
     tensors, products = (7, 6) if backward else (4, 2)
     return tensors * B * L * 64 * size, products * 2 * B * L * L * 64
+
+
+def block_train_work(B: int, L: int, dtype: torch.dtype, backward: bool):
+    """Bytes and FLOPs of one whole-block training call. Forward: x, s_a, s_f,
+    out and the f32 master weights once; the fused block's products. Backward:
+    x, g, s_a, s_f, gx, the weights and their gradients; the recompute plus
+    two products for every forward product."""
+    size = torch.finfo(dtype).bits // 8
+    n_weights = 4 * 64 * 64 + 2 * 64 * 256 + 9 * 64 + 256
+    forward_flops = fused_block_work(B, L, dtype)[1]
+    if backward:
+        return 5 * B * L * 64 * size + 2 * n_weights * 4, 3 * forward_flops
+    return 4 * B * L * 64 * size + n_weights * 4, forward_flops
 
 
 def phase_device():
@@ -368,6 +413,94 @@ def phase_core_kernels(dev):
     return result
 
 
+def phase_block_kernels(dev):
+    """Phase 8: the whole-block training kernels against their plain versions."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.ops import block_train as bt
+
+    block = fft_model.init_params(load_config(None), prng.key(SEED))["decoder"]["blocks"][0]
+    weights = [w.to(dev).contiguous() for w in bt.block_weights(block)]
+    gen = torch.Generator().manual_seed(SEED)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        ulp = 2.0 ** -8
+        for B, L in ((3, 37), (TRAIN_BATCH, 250)):
+            x, g = (torch.randn(B, L, 64, generator=gen).to(dev, dtype) for _ in range(2))
+            drawn = [bt.make_dropout_scales(k, 0.2, x.shape, dtype)
+                     for k in prng.split(prng.key(B, dev))]
+            for scales in (drawn, [None, None]):
+                out = bt.fused_block_train_forward(x, weights, *scales, 8)
+                gx, gws = bt.fused_block_train_backward(x, weights, *scales, g, 8)
+                gx2, gws2 = bt.fused_block_train_backward(x, weights, *scales, g, 8)
+                torch.cuda.synchronize()
+                ref = bt.fused_block_train_reference(x, weights, *scales, 8)
+                rx, rws = bt.fused_block_train_backward_reference(x, weights, *scales, g, 8)
+                what = (f"block kernels {name} {B}x{L} dropout "
+                        f"{'on' if scales[0] is not None else 'off'}")
+                check(torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in zip(gws, gws2)),
+                      f"{what}: two backward runs differ")
+                check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+                f_err = (out.float() - ref.float()).abs().max().item()
+                f_max = max(1.0, ref.float().abs().max().item())
+                x_max = max(1.0, rx.float().abs().max().item())
+                x_err = (gx.float() - rx.float()).abs().max().item()
+                # per weight gradient: error as a share of max(1, max|plain|)
+                w_errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                          for a, b in zip(gws, rws)]
+                w_err = max(w_errs)
+                worst = "/".join(bt.WEIGHT_FIELDS[w_errs.index(w_err)])
+                # A pre-activation that lands on the other side of 0 in another
+                # summation order flips its relu mask, and that row's gradients move
+                # by a whole term: a few rows in 128,000 do, none in 111. So at the
+                # training shape a small share of entries may miss the tight bar,
+                # and every entry meets a loose one.
+                flips = B * L > 1000
+                if dtype == torch.float32:
+                    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+                    x_out = outside(gx, rx, 1e-3, 1e-5 * x_max)
+                    w_out = max(outside(a, b, 2e-3, 1e-4 * max(1.0, b.abs().max().item()))
+                                for a, b in zip(gws, rws))
+                    check(w_out <= (2e-2 if flips else 0.0) and w_err <= 1e-2,
+                          f"{what}: weight gradients outside the tight bar on up to {w_out:.2e} "
+                          f"of a leaf, {worst} off by {w_err} of max(1, max|plain|)")
+                else:
+                    check(f_err <= 4 * ulp * f_max, f"{what}: forward err {f_err}")
+                    x_out = outside(gx, rx, 0.0, 8 * ulp * x_max)
+                    w_out = 0.0
+                    check(w_err <= 2e-2, f"{what}: {worst} off by {w_err} of max(1, max|plain|)")
+                check(x_out <= (1e-4 if flips else 0.0) and x_err <= 0.25 * x_max,
+                      f"{what}: gx outside its bar on {x_out:.2e} of the entries, max|err| {x_err}")
+                msg = (f"{what}: forward max|err| {f_err:.3g}; gx max|err| {x_err:.3g} of max|gx| "
+                       f"{rx.float().abs().max().item():.3g}, outside the tight bar {x_out:.2e}; "
+                       f"weight gradients max|err|/max(1, max|plain|) {w_err:.3g} ({worst}), "
+                       f"outside the tight bar {w_out:.2e}; backward bit-equal twice")
+                if B == TRAIN_BATCH and scales[0] is not None:
+                    times = {
+                        "fwd": median_ms(
+                            lambda: bt.fused_block_train_forward(x, weights, *scales, 8)),
+                        "fwd_plain": median_ms(
+                            lambda: bt.fused_block_train_reference(x, weights, *scales, 8)),
+                        "bwd": median_ms(
+                            lambda: bt.fused_block_train_backward(x, weights, *scales, g, 8)),
+                        "bwd_plain": median_ms(lambda: bt.fused_block_train_backward_reference(
+                            x, weights, *scales, g, 8)),
+                    }
+                    result[dtype] = dict(times, fwd_err=f_err, bwd_err=x_err)
+                    msg += "; ms " + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
+                log(msg)
+                del ref, rx, rws
+        x = underflow_input(gen).to(dev, dtype)
+        out = bt.fused_block_train_forward(x, weights, None, None, 8)
+        gx, gws = bt.fused_block_train_backward(x, weights, None, None, torch.ones_like(x), 8)
+        check(all(bool(torch.isfinite(t).all()) for t in (out, gx, *gws)),
+              f"block kernels: underflow input gave non-finite values ({name})")
+        log(f"block underflow input {name}: output and all 17 gradients finite")
+    return result
+
+
 def _train_batch(cfg, B, seed):
     """One training batch as train/data.py serves it, from a numpy seed."""
     rng = np.random.default_rng(seed)
@@ -402,21 +535,39 @@ def make_chunks(rng, n, cfg):
     return one_hot, targets.astype(np.float32), dwell, stdev
 
 
-def phase_train_step(dev):
-    """Phase 6: one whole train step, kernels against plain versions."""
+def _launch_counts():
+    """(block forward, block backward, core forward, core backward) launches."""
+    from seq2squiggle_tpu_torch.ops import attn_core as ac
+    from seq2squiggle_tpu_torch.ops import block_train as bt
+
+    return (bt.launches_fwd, bt.launches_bwd, ac.launches_fwd, ac.launches_bwd)
+
+
+def _reset_launch_counts():
+    from seq2squiggle_tpu_torch.ops import attn_core as ac
+    from seq2squiggle_tpu_torch.ops import block_train as bt
+
+    bt.launches_fwd = bt.launches_bwd = ac.launches_fwd = ac.launches_bwd = 0
+
+
+def phase_train_step(dev, mode, bf16_mode):
+    """Phases 6 and 9: one whole train step at `pallas_train: mode`, kernels
+    against plain versions; then bf16 on the card at `bf16_mode` against
+    `pallas_train: false`."""
     from seq2squiggle_tpu_torch import prng
     from seq2squiggle_tpu_torch.config import load_config
     from seq2squiggle_tpu_torch.models import fft_model
-    from seq2squiggle_tpu_torch.ops import attn_core as ac
     from seq2squiggle_tpu_torch.train.loop import loss_fn
 
-    base = dict(load_config(None), pallas_train="core")
+    base = dict(load_config(None), pallas_train=mode)
     host = fft_model.init_params(base, prng.key(SEED))
     cpu = torch.device("cpu")
+    want = (2, 2, 0, 0) if mode == "block" else (0, 0, 2, 2)  # the decoder's two blocks
 
     def loss_and_grads(cfg, device, batch, mask):
         params = fft_model.to_train_params(host, device)
         paths, leaves = zip(*fft_model.tree_leaves(params))
+        _reset_launch_counts()
         loss, _ = loss_fn(params, {k: v.to(device) for k, v in batch.items()},
                           mask.to(device), cfg, prng.key(9, device))
         grads = torch.autograd.grad(loss, leaves)
@@ -424,24 +575,28 @@ def phase_train_step(dev):
 
     cfg32 = dict(base, compute_dtype="float32")
     batch, mask = _train_batch(cfg32, 64, seed=1)
-    before = (ac.launches_fwd, ac.launches_bwd)
     g_loss, paths, g_grads = loss_and_grads(cfg32, dev, batch, mask)
-    check((ac.launches_fwd - before[0], ac.launches_bwd - before[1]) == (2, 2),
-          "f32 train step: the decoder's two blocks did not go through the core kernels")
+    check(_launch_counts() == want, f"f32 train step at {mode}: launches (block forward, "
+          f"block backward, core forward, core backward) {_launch_counts()}, want {want}")
     c_loss, _, c_grads = loss_and_grads(cfg32, cpu, batch, mask)
     check(abs(g_loss - c_loss) <= 1e-4 * abs(c_loss), f"f32 step loss {g_loss} vs {c_loss}")
     worst = 0.0
     for path, a, b in zip(paths, g_grads, c_grads):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4, msg=lambda m: f"{path}: {m}")
         worst = max(worst, (a - b).abs().max().item())
-    log(f"f32 train step GPU kernels vs CPU plain: loss {g_loss:.6f} vs {c_loss:.6f}, "
-        f"{len(paths)} gradient leaves within rtol 2e-3 / atol 2e-4 (max|Δ| {worst:.3g})")
+    log(f"f32 train step at {mode}, GPU kernels vs CPU plain: loss {g_loss:.6f} vs "
+        f"{c_loss:.6f}, {len(paths)} gradient leaves within rtol 2e-3 / atol 2e-4 "
+        f"(max|Δ| {worst:.3g}); launches {want}")
 
-    batch, mask = _train_batch(base, TRAIN_BATCH, seed=2)
-    k_loss, _, _ = loss_and_grads(base, dev, batch, mask)
+    base16 = dict(base, pallas_train=bf16_mode)
+    batch, mask = _train_batch(base16, TRAIN_BATCH, seed=2)
+    k_loss, _, _ = loss_and_grads(base16, dev, batch, mask)
+    check(_launch_counts() == want,
+          f"bf16 train step at {bf16_mode}: launches {_launch_counts()}, want {want}")
     p_loss, _, _ = loss_and_grads(dict(base, pallas_train=False), dev, batch, mask)
+    check(_launch_counts() == (0, 0, 0, 0), "pallas_train: false launched a training kernel")
     check(abs(k_loss - p_loss) <= 1e-2 * abs(p_loss), f"bf16 step loss {k_loss} vs {p_loss}")
-    log(f"bf16 train step kernels vs plain blocks: loss {k_loss:.6f} vs {p_loss:.6f}")
+    log(f"bf16 train step at {bf16_mode} vs plain blocks: loss {k_loss:.6f} vs {p_loss:.6f}")
 
 
 def _write_chunk_dir(path: pathlib.Path, rng, n_files: int, per_file: int, cfg) -> None:
@@ -455,29 +610,33 @@ def _write_chunk_dir(path: pathlib.Path, rng, n_files: int, per_file: int, cfg) 
             np.save(path / f"{name}-{i:04d}.npy", arr)
 
 
-def phase_train_main_path(dev):
-    """Phase 7: the `train` command at full width, launches counted."""
+def phase_train_main_path(dev, mode, epochs, steps, resume):
+    """Phases 7 and 10: the `train` command at full width, launches counted.
+    mode: the `pallas_train` override, or None for the default config (which
+    takes the block rung in bf16 on a GPU). Returns the run's launch counts."""
     import yaml
 
     from seq2squiggle_tpu_torch import cli, prng
     from seq2squiggle_tpu_torch.config import load_config
     from seq2squiggle_tpu_torch.models import fft_model
     from seq2squiggle_tpu_torch.models.weights import load_checkpoint
-    from seq2squiggle_tpu_torch.ops import attn_core as ac
     from seq2squiggle_tpu_torch.runtime.predict import PredictKnobs
     from seq2squiggle_tpu_torch.train.data import ChunkDataset, epoch_batches, load_file_groups
     from seq2squiggle_tpu_torch.train.loop import load_train_state, make_valid_step
 
-    over = {"pallas_train": "core", "max_epochs": 2, "train_batch_size": TRAIN_BATCH}
+    over = {"max_epochs": epochs, "train_batch_size": TRAIN_BATCH}
+    if mode is not None:
+        over["pallas_train"] = mode
     cfg = dict(load_config(None), **over)  # bf16 compute, Adam, warmup_cosine, clip 1.0
+    name = f"pallas_train: {cfg['pallas_train']}"
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         tmp = pathlib.Path(tmp)
         rng = np.random.default_rng(SEED)
-        _write_chunk_dir(tmp / "train", rng, 4, TRAIN_STEPS * TRAIN_BATCH // 4, cfg)
+        _write_chunk_dir(tmp / "train", rng, 4, steps * TRAIN_BATCH // 4, cfg)
         _write_chunk_dir(tmp / "valid", rng, 1, VALID_STEPS * TRAIN_BATCH, cfg)
         (tmp / "cfg.yaml").write_text(yaml.safe_dump(over))
-        (tmp / "cfg3.yaml").write_text(yaml.safe_dump(dict(over, max_epochs=3)))
+        (tmp / "cfg_more.yaml").write_text(yaml.safe_dump(dict(over, max_epochs=epochs + 1)))
         model = tmp / "ckpt" / "model.npz"
 
         def valid_loss(host_params):
@@ -496,51 +655,59 @@ def phase_train_main_path(dev):
 
         args = ["train", str(tmp / "train"), str(tmp / "valid"), "-m", str(model),
                 "-s", str(SEED), "-v", "warning"]
-        ac.launches_fwd = ac.launches_bwd = 0
+        _reset_launch_counts()
         t0 = time.perf_counter()
         cli.main([*args, "-y", str(tmp / "cfg.yaml")], standalone_mode=False)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        fwd, bwd = ac.launches_fwd, ac.launches_bwd
+        counts = _launch_counts()
 
-        n_train, n_valid = 2 * TRAIN_STEPS, 2 * VALID_STEPS
-        check(fwd == 2 * (n_train + n_valid) and bwd == 2 * n_train,
-              f"core kernel launches {fwd} forward / {bwd} backward for {n_train} train and "
-              f"{n_valid} valid steps (want {2 * (n_train + n_valid)} / {2 * n_train})")
-        for name in ("model.npz", "model-epoch1.npz", "train_state.npz", "metrics.jsonl"):
-            check((tmp / "ckpt" / name).exists(), f"train main path: {name} missing")
+        n_train, n_valid = epochs * steps, epochs * VALID_STEPS
+        ran = (2 * (n_train + n_valid), 2 * n_train)
+        want = (0, 0, *ran) if mode == "core" else (*ran, 0, 0)
+        check(counts == want,
+              f"{name}: launches (block forward, block backward, core forward, core backward) "
+              f"{counts} for {n_train} train and {n_valid} valid steps, want {want}")
+        last = epochs - 1
+        for file in ("model.npz", f"model-epoch{last}.npz", "train_state.npz", "metrics.jsonl"):
+            check((tmp / "ckpt" / file).exists(), f"{name}: {file} missing")
         rows = [json.loads(line) for line in open(tmp / "ckpt" / "metrics.jsonl")]
         losses = [v for r in rows for k, v in r.items() if k.endswith("_loss")]
-        check(len(losses) >= 8 and all(math.isfinite(v) for v in losses),
-              f"train main path: logged losses {losses}")
+        check(len(losses) >= 4 * epochs and all(math.isfinite(v) for v in losses),
+              f"{name}: logged losses {losses}")
         logged = [r["valid_total_loss"] for r in rows if "valid_total_loss" in r]
 
         host_params, ckpt_cfg = load_checkpoint(str(model))
         loss1 = valid_loss(host_params)
         check(abs(loss1 - logged[-1]) <= 1e-3 * abs(loss1),
               f"model.npz validates at {loss1}, the run logged {logged[-1]}")
-        check(loss1 < loss0, f"validation loss did not fall: {loss0} -> {loss1}")
-        signal, counts = _step(fft_model.to_device(host_params, dev, torch.bfloat16),
-                               _batch(BATCH, 3), dev, ckpt_cfg,
-                               PredictKnobs(dwell_mean=10.0))
-        check(signal.shape == (BATCH, 250) and counts.shape == (BATCH,)
-              and (counts >= 0).all() and counts.max() > 0,
+        if resume:  # the run that is long enough to have learnt something
+            check(loss1 < loss0, f"validation loss did not fall: {loss0} -> {loss1}")
+        signal, n_samples = _step(fft_model.to_device(host_params, dev, torch.bfloat16),
+                                  _batch(BATCH, 3), dev, ckpt_cfg,
+                                  PredictKnobs(dwell_mean=10.0))
+        check(signal.shape == (BATCH, 250) and n_samples.shape == (BATCH,)
+              and (n_samples >= 0).all() and n_samples.max() > 0,
               "trained checkpoint: predict_step output")
 
-        check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == 1,
-              "train_state.npz does not record epoch 1")
-        ac.launches_fwd = ac.launches_bwd = 0
-        cli.main([*args, "-y", str(tmp / "cfg3.yaml"), "--resume"], standalone_mode=False)
-        check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == 2
-              and (tmp / "ckpt" / "model-epoch2.npz").exists()
-              and ac.launches_bwd == 2 * TRAIN_STEPS,
-              f"--resume did not run exactly epoch 2 ({ac.launches_bwd} backward launches)")
-    log(f"train main path: {n_train} train + {n_valid} valid steps of {TRAIN_BATCH} chunks in "
-        f"{seconds:.3f} s ({n_train / seconds:.2f} steps/s, "
+        check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == last,
+              f"train_state.npz does not record epoch {last}")
+        if resume:
+            _reset_launch_counts()
+            cli.main([*args, "-y", str(tmp / "cfg_more.yaml"), "--resume"],
+                     standalone_mode=False)
+            check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == epochs
+                  and (tmp / "ckpt" / f"model-epoch{epochs}.npz").exists()
+                  and _launch_counts()[1] == 2 * steps,
+                  f"--resume did not run exactly epoch {epochs} "
+                  f"({_launch_counts()[1]} backward launches)")
+    log(f"train path at {name}: {n_train} train + {n_valid} valid steps of {TRAIN_BATCH} "
+        f"chunks in {seconds:.3f} s ({n_train / seconds:.2f} steps/s, "
         f"{n_train * TRAIN_BATCH / seconds:.0f} chunks/s, wall time of the whole command "
         f"with data loading, validation and checkpoints); validation loss {loss0:.5f} -> "
-        f"{loss1:.5f}; core launches {fwd} forward / {bwd} backward; --resume ran epoch 2")
-    return fwd, bwd
+        f"{loss1:.5f}; launches (block forward, block backward, core forward, core backward) "
+        f"{counts}" + (f"; --resume ran epoch {epochs}" if resume else ""))
+    return counts
 
 
 def main() -> int:
@@ -566,16 +733,29 @@ def main() -> int:
     phase_step(host_params, dev)
     launches = phase_main_path(dev)
     core = phase_core_kernels(dev)[torch.bfloat16]
-    phase_train_step(dev)
-    fwd_launches, bwd_launches = phase_train_main_path(dev)
+    phase_train_step(dev, "core", "core")
+    _, _, core_fwd_launches, core_bwd_launches = phase_train_main_path(
+        dev, "core", epochs=1, steps=CORE_STEPS, resume=False)
+    block = phase_block_kernels(dev)[torch.bfloat16]
+    phase_train_step(dev, "block", "auto")
+    block_fwd_launches, block_bwd_launches, _, _ = phase_train_main_path(
+        dev, None, epochs=2, steps=TRAIN_STEPS, resume=True)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
     k_ms = 2 * (times[(bf16, 16)][0] + times[(bf16, 250)][0])
     p_ms = 2 * (times[(bf16, 16)][1] + times[(bf16, 250)][1])
     fused_bound = [bound(*fused_block_work(BATCH, L, bf16), bf16) for L in (16, 250)]
-    core_bound = [bound(*core_work(TRAIN_BATCH, 250, bf16, bw), bf16) for bw in (False, True)]
-    core_src = "seq2squiggle_tpu_torch/csrc/attn_core.cu"
+
+    def entry(name, source, replaces, launches, got, direction, work):
+        bound_ms, bound_by = bound(*work(TRAIN_BATCH, 250, bf16, direction == "bwd"), bf16)
+        return {"name": name, "route": "cuda",
+                "source": f"seq2squiggle_tpu_torch/csrc/{source}",
+                "replaces": f"seq2squiggle_tpu/ops/pallas/{replaces}", "launches": launches,
+                "max_abs_err": got[f"{direction}_err"], "ms": got[direction],
+                "plain_ms": got[f"{direction}_plain"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": got.get(f"{direction}_library")}
+
     kernels = {"kernels": [{
         "name": "fused_fft_block",
         "route": "cuda",
@@ -590,31 +770,16 @@ def main() -> int:
         "library_ms": None,
         "ms_by_shape": {f"{str(dt)[6:]} {BATCH}x{L}x64": {"ms": k, "plain_ms": p}
                         for (dt, L), (k, p) in times.items()},
-    }, {
-        "name": "packed_attention_core_fwd",
-        "route": "cuda",
-        "source": core_src,
-        "replaces": "seq2squiggle_tpu/ops/pallas/attn_core.py:184",
-        "launches": fwd_launches,
-        "max_abs_err": core["fwd_err"],
-        "ms": core["fwd"],
-        "plain_ms": core["fwd_plain"],
-        "bound_ms": core_bound[0][0],
-        "bound_by": core_bound[0][1],
-        "library_ms": core["fwd_library"],
-    }, {
-        "name": "packed_attention_core_bwd",
-        "route": "cuda",
-        "source": core_src,
-        "replaces": "seq2squiggle_tpu/ops/pallas/attn_core.py:205",
-        "launches": bwd_launches,
-        "max_abs_err": core["bwd_err"],
-        "ms": core["bwd"],
-        "plain_ms": core["bwd_plain"],
-        "bound_ms": core_bound[1][0],
-        "bound_by": core_bound[1][1],
-        "library_ms": core["bwd_library"],
-    }]}
+    },
+        entry("packed_attention_core_fwd", "attn_core.cu", "attn_core.py:184",
+              core_fwd_launches, core, "fwd", core_work),
+        entry("packed_attention_core_bwd", "attn_core.cu", "attn_core.py:205",
+              core_bwd_launches, core, "bwd", core_work),
+        entry("fused_block_train_fwd", "block_train.cu", "block_train.py:304",
+              block_fwd_launches, block, "fwd", block_train_work),
+        entry("fused_block_train_bwd", "block_train.cu", "block_train.py:335",
+              block_bwd_launches, block, "bwd", block_train_work),
+    ]}
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seq2squiggle_tpu"))
     check(not loaded, f"the port imported {loaded}")

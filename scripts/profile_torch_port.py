@@ -21,11 +21,13 @@ reference mode (the input of chip_smoke.py's main path):
 
 With --train: the default config at full width (bf16, batch 512, Adam,
 dropout on) on chip_smoke.py's synthetic chunks; 5 warm-up steps, then 10
-steps each at `pallas_train: core` and `false` timed in turns by the host
-clock around torch.cuda.synchronize(), then 5 core steps under
-torch.profiler: device time by kernel group (the two attention-core kernels,
-matrix products, everything else), kernel launches per step, device busy
-share; the kernel table goes to <out-dir>/train_profile.txt.
+steps each at `pallas_train: block` (what the default `auto` picks), `core`
+and `false` timed in turns by the host clock around
+torch.cuda.synchronize(), then 5 steps each at block and at core under
+torch.profiler: device time by kernel group (the whole-block kernels' stages,
+the attention-core kernels, matrix products, everything else), kernel
+launches per step, device busy time; the block rung's kernel table goes to
+<out-dir>/train_profile.txt.
 
 Prints the card as nvidia-smi names it, one line per run, and as its last
 line one JSON object with every number above.
@@ -160,45 +162,48 @@ def train_profile(out_dir: pathlib.Path) -> dict:
 
         return run
 
-    runs = {"core": make("core"), "plain": make(False)}
+    runs = {"block": make("auto"), "core": make("core"), "plain": make(False)}
     for run in runs.values():
         run(5)
-    ms = {"core": [], "plain": []}
-    for name in ("plain", "core", "core", "plain"):
+    ms = {name: [] for name in runs}
+    for name in ("plain", "core", "block", "block", "core", "plain"):
         t0 = time.perf_counter()
         runs[name](5)
         ms[name].append((time.perf_counter() - t0) / 5 * 1e3)
 
+    # device kernels by the first fragment of their name that matches
+    fragments = ["block_train_fwd", "bwd_rows", "bwd_input", "wgrad", "reduce_partials",
+                 "round_weights", "attn_core_fwd", "attn_core_bwd"]
     steps = 5
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runs["core"](steps)
-    wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    groups = {"attn_core_fwd_kernel": 0.0, "attn_core_bwd_kernel": 0.0, "gemm": 0.0,
-              "other": 0.0}
-    for e in device:
-        name = e.name.lower()
-        key = ("attn_core_fwd_kernel" if "attn_core_fwd" in name
-               else "attn_core_bwd_kernel" if "attn_core_bwd" in name
-               else "gemm" if ("gemm" in name or "cutlass" in name or "cublas" in name)
-               else "other")
-        groups[key] += e.time_range.elapsed_us() / 1e3 / steps
-    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in device) / 1e3
-    sort = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    (out_dir / "train_profile.txt").write_text(avg.table(sort_by=sort, row_limit=40))
-    calls = {e.key: e.count for e in avg}
-    return {
-        "batch": B, "step_ms_core": ms["core"], "step_ms_plain": ms["plain"],
-        "profiled_steps": steps, "profiled_wall_ms_per_step": wall / steps * 1e3,
-        "device_ms_per_step_by_group": groups,
-        "device_busy_ms_per_step": busy_ms / steps,
-        "device_idle_share": 1.0 - busy_ms / 1e3 / wall,
-        "device_kernels_per_step": len(device) / steps,
-        "cudaLaunchKernel_per_step": calls.get("cudaLaunchKernel", 0) / steps,
-    }
+    result = {"batch": B, "profiled_steps": steps,
+              **{f"step_ms_{name}": times for name, times in ms.items()}}
+    for name in ("block", "core"):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runs[name](steps)
+        wall = time.perf_counter() - t0
+        avg = prof.key_averages()
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        groups = dict.fromkeys([*fragments, "gemm", "other"], 0.0)
+        for e in device:
+            kernel = e.name.lower()
+            key = next((f for f in fragments if f in kernel), None) or (
+                "gemm" if any(w in kernel for w in ("gemm", "cutlass", "cublas")) else "other")
+            groups[key] += e.time_range.elapsed_us() / 1e3 / steps
+        busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in device) / 1e3
+        if name == "block":
+            sort = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
+                    else "self_cuda_time_total")
+            (out_dir / "train_profile.txt").write_text(avg.table(sort_by=sort, row_limit=40))
+        calls = {e.key: e.count for e in avg}
+        result[name] = {
+            "profiled_wall_ms_per_step": wall / steps * 1e3,
+            "device_ms_per_step_by_group": {k: v for k, v in groups.items() if v},
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_kernels_per_step": len(device) / steps,
+            "cudaLaunchKernel_per_step": calls.get("cudaLaunchKernel", 0) / steps,
+        }
+    return result
 
 
 def main() -> int:

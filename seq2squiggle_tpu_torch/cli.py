@@ -281,8 +281,10 @@ def train(train_dir, valid_dir, save_valid_plots, resume, tensor_parallel, devic
     """Train the model with preprocessed .npy chunks.
 
     TRAIN_DIR must contain the .npy files from the preprocess command. The
-    port trains at `pallas_train: core` (hand-written attention-core kernels)
-    or `pallas_train: false` (plain blocks).
+    config's `pallas_train` picks the decoder's rung: `block` or `true`
+    (hand-written whole-block kernels; what the default `auto` takes in
+    bfloat16 on a GPU), `core` (hand-written attention-core kernels) or
+    `false` (plain blocks).
     """
     setup_logging(verbosity)
     logger.info("seq2squiggle-tpu (PyTorch port) version %s", __version__)

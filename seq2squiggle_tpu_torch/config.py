@@ -62,9 +62,10 @@ DEFAULT_CONFIG: dict = {
     # ops/pallas/fft_block._packed_default)
     "pallas_pair": "auto",  # auto | true | false — fuse both decoder FFT
     # blocks into one pallas_call (auto = off until timed on hardware)
-    "pallas_train": "auto",  # auto | true | false — head-packed attention
-    # core with custom-VJP Pallas kernels on the TRAINING path (auto =
-    # bf16, non-CPU, tp=1; see models/fft_model._use_packed_core)
+    "pallas_train": "auto",  # auto | true | block | core | false — the
+    # decoder's rung on the TRAINING path: whole-block kernels, attention-core
+    # kernels or plain blocks (auto = block in bf16 on a GPU, else plain; see
+    # models/fft_model._train_kernel_mode)
     "random_seed": 42,  # used for file-level train/valid splits
     "tensor_parallel": 1,  # 'tp' mesh degree for training (CLI: train --tp)
 }

@@ -1,7 +1,8 @@
 // Device functions shared by the port's attention kernels (fft_block.cu, the
-// fused inference block, and attn_core.cu, the training attention core):
-// compute-dtype <-> f32 conversion, 8-wide head-slice loads and stores, warp
-// reductions and the softmax of one query row against all keys of its head.
+// fused inference block; attn_core.cu, the training attention core;
+// block_train.cu, the whole-block training kernels): compute-dtype <-> f32
+// conversion, 8-wide head-slice loads and stores, warp reductions and the
+// softmax of one query row against all keys of its head.
 //
 // Numerics (as the TPU kernels' _attn_headloop / _attn_packed): exact row max
 // for the head loop, per-head Cauchy–Schwarz bound ‖q_t‖·max_s‖k_s‖/√d_k for
@@ -156,5 +157,23 @@ __device__ __forceinline__ void attend_query(const float q[DK], const T* kh, con
   }
   den = fmaxf(den, DEN_MIN);
 }
+
+// Dynamic shared memory above 48 KB (long sequences) must be asked for; a
+// size past the device's limit is refused here or at the launch, and reported.
+constexpr size_t STATIC_SMEM_MAX = 48 * 1024;
+template <typename K>
+inline cudaError_t allow_shared_memory(K kernel, size_t smem) {
+  if (smem <= STATIC_SMEM_MAX) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The attention-core backward (attn_core.cu) with gq, gk, gv left as the f32
+// sums, before their cast: one stage of the whole-block training backward
+// (block_train.cu), which adds the f32 values into the bias gradients. q, k,
+// v, g: (B, L, 64) in the compute dtype (0 bf16, 1 f32). Returns
+// cudaGetLastError() after the launch.
+int attn_core_bwd_f32(const void* q, const void* k, const void* v, const void* g, float* gq,
+                      float* gk, float* gv, int B, int L, int dtype, float inv_temp,
+                      cudaStream_t stream);
 
 }  // namespace s2s

@@ -40,7 +40,6 @@ namespace {
 using namespace s2s;
 
 constexpr int THREADS = 256;
-constexpr int STATIC_SMEM_MAX = 48 * 1024;
 
 template <typename T>
 __device__ __forceinline__ void load_head(T* dst, const T* src, int L, int tid) {
@@ -75,11 +74,13 @@ attn_core_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+// TO is the gradients' type: T (rounded once on store), or float for the
+// whole-block training backward, which wants the f32 sums themselves.
+template <typename T, typename TO>
 __global__ void __launch_bounds__(THREADS)
 attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ g,
-                     T* __restrict__ gq, T* __restrict__ gk, T* __restrict__ gv,
+                     TO* __restrict__ gq, TO* __restrict__ gk, TO* __restrict__ gv,
                      const int L, const float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -156,14 +157,6 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Shared memory above 48 KB (long sequences) must be asked for; a size past
-// the device's limit is refused here or at the launch, and reported.
-template <typename K>
-cudaError_t allow_shared_memory(K kernel, size_t smem) {
-  if (smem <= STATIC_SMEM_MAX) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, int B, int L,
                float inv_temp, cudaStream_t stream) {
@@ -176,20 +169,29 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, int B, in
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* gq,
                void* gk, void* gv, int B, int L, float inv_temp, cudaStream_t stream) {
   const size_t smem = 4 * (size_t)L * DK * sizeof(T) + 2 * (size_t)L * sizeof(float);
-  cudaError_t err = allow_shared_memory(attn_core_bwd_kernel<T>, smem);
+  cudaError_t err = allow_shared_memory(attn_core_bwd_kernel<T, TO>, smem);
   if (err != cudaSuccess) return (int)err;
-  attn_core_bwd_kernel<T><<<B * H, THREADS, smem, stream>>>(
+  attn_core_bwd_kernel<T, TO><<<B * H, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<T*>(gq), static_cast<T*>(gk),
-      static_cast<T*>(gv), L, inv_temp);
+      static_cast<const T*>(g), static_cast<TO*>(gq), static_cast<TO*>(gk),
+      static_cast<TO*>(gv), L, inv_temp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+int s2s::attn_core_bwd_f32(const void* q, const void* k, const void* v, const void* g,
+                           float* gq, float* gk, float* gv, int B, int L, int dtype,
+                           float inv_temp, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_bwd<__nv_bfloat16, float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, stream);
+  if (dtype == 1) return launch_bwd<float, float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, stream);
+  return (int)cudaErrorInvalidValue;
+}
 
 // q, k, v, out: (B, L, 64) contiguous, bf16 (dtype 0) or f32 (dtype 1).
 extern "C" int s2s_attn_core_fwd(const void* q, const void* k, const void* v, void* out,
@@ -205,7 +207,8 @@ extern "C" int s2s_attn_core_bwd(const void* q, const void* k, const void* v, co
                                  void* gq, void* gk, void* gv, int B, int L, int dtype,
                                  float inv_temp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<__nv_bfloat16>(q, k, v, g, gq, gk, gv, B, L, inv_temp, s);
-  if (dtype == 1) return launch_bwd<float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, s);
+  if (dtype == 0)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(q, k, v, g, gq, gk, gv, B, L, inv_temp, s);
+  if (dtype == 1) return launch_bwd<float, float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import prng
 from ..ops.attention import _maybe_dropout, fft_block, linear
+from ..ops.block_train import fused_block_train, make_dropout_scales
 from ..ops.fft_block import fused_fft_block
 from ..ops.positional import sinusoid_encoding_table
 
@@ -61,41 +62,50 @@ def _check_kernel_knobs(config: dict) -> None:
 def _train_kernel_mode(config: dict, x: torch.Tensor,
                        on_cuda: Optional[bool] = None) -> str:
     """Which rung the training forward takes for activations x (B, L, D):
-    "core" (the hand-written attention-core kernels, ops/attn_core.py) or
-    "plain" (PyTorch blocks). As the JAX package's _train_kernel_mode, short
-    sequences (L <= 32, the encoder) stay plain, `pallas_train: core` takes
-    the core rung, `false` the plain one, and `auto` in float32 is plain. The
-    whole-block training kernels are not ported, and there is no quiet step
-    down to another rung: `true`, `block`, and `auto` where it would pick the
-    block rung (bfloat16 on a GPU) raise."""
+    "block" (the whole-block forward and backward kernels, ops/block_train.py),
+    "core" (the attention-core kernels, ops/attn_core.py) or "plain" (PyTorch
+    blocks). As the JAX package's _train_kernel_mode: short sequences
+    (L <= 32, the encoder) stay plain; `pallas_train: true` or `block` takes
+    the block rung, `core` the core rung, `false` the plain one; `auto` is
+    the block rung in bfloat16 on a GPU and plain otherwise (float32 is the
+    fidelity mode). There is no step down to another rung: a kernel that
+    fails to build or launch raises."""
     if x.shape[1] <= 32:
         return "plain"
     mode = config.get("pallas_train", "auto")
+    if mode is True or mode == "block":
+        return "block"
     if mode == "core":
         return "core"
     if mode is False:
         return "plain"
-    if on_cuda is None:
-        on_cuda = x.is_cuda
-    if mode is True or mode == "block" or (
-            mode == "auto" and x.dtype == torch.bfloat16 and on_cuda):
-        raise NotImplementedError(
-            f"pallas_train: {mode} selects the whole-block training kernels, which "
-            "are not ported to the GPU yet (ROADMAP.md, kernel queue B3); set "
-            "pallas_train: core (attention-core kernels) or false (plain blocks)")
     if mode == "auto":
-        return "plain"
+        if on_cuda is None:
+            on_cuda = x.is_cuda
+        return "block" if x.dtype == torch.bfloat16 and on_cuda else "plain"
     raise ValueError(f"Unknown pallas_train: {mode!r}")
 
 
 def _train_blocks(blocks, h: torch.Tensor, n_head: int, config: dict, rate: float,
-                  dropout_key: Optional[torch.Tensor]) -> torch.Tensor:
-    """The training forward of a block stack: per-block key fold_in(key, i)."""
-    use_core = _train_kernel_mode(config, h) == "core"
+                  dropout_key: Optional[torch.Tensor], whole_block: bool) -> torch.Tensor:
+    """The training forward of a block stack: per-block key fold_in(key, i),
+    split into the attention-out and FFN-out dropout keys. `whole_block` is
+    true for the decoder, which takes the block rung where the mode says so;
+    the encoder takes the core rung there instead (as the JAX package)."""
+    mode = _train_kernel_mode(config, h)
+    if mode == "block" and whole_block:
+        for i, block in enumerate(blocks):
+            s_a = s_f = None
+            if dropout_key is not None and rate > 0.0:
+                key_a, key_f = prng.split(prng.fold_in(dropout_key, i))
+                s_a = make_dropout_scales(key_a, rate, h.shape, h.dtype)
+                s_f = make_dropout_scales(key_f, rate, h.shape, h.dtype)
+            h = fused_block_train(h, block, s_a, s_f, n_head)
+        return h
     for i, block in enumerate(blocks):
         key_i = prng.fold_in(dropout_key, i) if dropout_key is not None else None
         h = fft_block(block, h, n_head, dropout_rate=rate, dropout_key=key_i,
-                      packed_core=use_core)
+                      packed_core=mode in ("core", "block"))
     return h
 
 
@@ -263,7 +273,7 @@ def encoder_forward(params: dict, one_hot: torch.Tensor, config: dict,
     if train or dropout_key is not None:
         rate = config["encoder_dropout"] if dropout_key is not None else 0.0
         return _train_blocks(enc["blocks"], h, config["encoder_heads"], config, rate,
-                             dropout_key), emb_out
+                             dropout_key, whole_block=False), emb_out
     return _blocks(enc["blocks"], h, config["encoder_heads"], config), emb_out
 
 
@@ -276,7 +286,7 @@ def decoder_forward(params: dict, x: torch.Tensor, config: dict,
     if train or dropout_key is not None:
         rate = config["decoder_dropout"] if dropout_key is not None else 0.0
         h = _train_blocks(dec["blocks"], h, config["decoder_heads"], config, rate,
-                          dropout_key)
+                          dropout_key, whole_block=True)
     else:
         h = _blocks(dec["blocks"], h, config["decoder_heads"], config)
     return F.relu(linear(dec["out_linear"], h))

@@ -78,6 +78,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.s2s_attn_core_bwd.restype = c_int
     lib.s2s_attn_core_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
                                       c_int, ctypes.c_float, ptr]
+    ptrs = ctypes.POINTER(ptr)
+    lib.s2s_block_train_workspace.restype = None
+    lib.s2s_block_train_workspace.argtypes = [c_int, c_int, ctypes.POINTER(ctypes.c_longlong)]
+    lib.s2s_block_train_fwd.restype = c_int
+    lib.s2s_block_train_fwd.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptr, c_int, c_int, c_int,
+                                        ctypes.c_float, ptr]
+    lib.s2s_block_train_bwd.restype = c_int
+    lib.s2s_block_train_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptrs, ptr, ptr, ptr,
+                                        c_int, c_int, c_int, ctypes.c_float, ptr]
     lib.s2s_error_string.restype = ctypes.c_char_p
     lib.s2s_error_string.argtypes = [ctypes.c_int]
     return lib

@@ -88,21 +88,27 @@ def packed_attention_core_reference(q, k, v, n_head: int) -> torch.Tensor:
                                            _heads(v, n_head), inv_temp))
 
 
-def packed_attention_core_backward_reference(q, k, v, g, n_head: int):
-    """Plain PyTorch version of the backward kernel: (gq, gk, gv), each
-    (B, L, D) in q's dtype, for the output gradient g (already in q's dtype)."""
-    cd = q.dtype
-    inv_temp = 1.0 / math.sqrt(q.shape[-1] // n_head)
-    qh, kh, vh, gh = (_heads(t, n_head) for t in (q, k, v, g))
+def packed_attention_backward_terms(qh, kh, vh, gh, inv_temp: float):
+    """The backward on head-split tensors (B, H, L, d_k), gh already in the
+    compute dtype: (gq, gk, gv) as float32 sums, before their cast. Shared
+    with the whole-block training backward (ops/block_train.py), which sums
+    the float32 values into the bias gradients."""
+    cd = qh.dtype
     e, num, den = _softmax_terms(qh, kh, vh, inv_temp)
     g_n = (gh.float() / den).to(cd)                          # ĝ
     g_a = _mm(g_n, vh.transpose(-1, -2))                     # (B, H, L, L)
     r = (g_n.float() * num).sum(-1, keepdim=True) / den
     ds = (e.float() * ((g_a - r) * inv_temp)).to(cd)
-    gq = _mm(ds, kh)
-    gk = _mm(ds.transpose(-1, -2), qh)
-    gv = _mm(e.transpose(-1, -2), g_n)
-    return tuple(_packed(t.to(cd)) for t in (gq, gk, gv))
+    return _mm(ds, kh), _mm(ds.transpose(-1, -2), qh), _mm(e.transpose(-1, -2), g_n)
+
+
+def packed_attention_core_backward_reference(q, k, v, g, n_head: int):
+    """Plain PyTorch version of the backward kernel: (gq, gk, gv), each
+    (B, L, D) in q's dtype, for the output gradient g (already in q's dtype)."""
+    inv_temp = 1.0 / math.sqrt(q.shape[-1] // n_head)
+    terms = packed_attention_backward_terms(*(_heads(t, n_head) for t in (q, k, v, g)),
+                                            inv_temp)
+    return tuple(_packed(t.to(q.dtype)) for t in terms)
 
 
 def _check(n_head: int, *tensors: torch.Tensor) -> None:

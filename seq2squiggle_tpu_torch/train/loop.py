@@ -9,8 +9,12 @@ for `--resume`, and metrics every 100 steps. Checkpoints and train states
 are the JAX package's files: either package loads the other's.
 
 The step is eager PyTorch: loss, `.backward()`, the optimizer's update in
-place. With `pallas_train: core` the decoder's attention core runs the
-hand-written forward and backward kernels (ops/attn_core.py).
+place. The decoder's two blocks take the rung `pallas_train` names
+(models/fft_model.py::_train_kernel_mode): `block` (also `true`, and `auto`
+in bfloat16 on a GPU, the default) runs each whole block through the
+hand-written forward and backward kernels of ops/block_train.py; `core` runs
+only the attention core through those of ops/attn_core.py; `false` (and
+`auto` in float32 or on the CPU) is plain PyTorch.
 
 Not ported (each raises NotImplementedError): `tensor_parallel > 1` and more
 than one device or process, `--save-valid-plots`, the legacy `.pkl` train

@@ -5,11 +5,12 @@ Inputs come from numpy seeds and cross as numpy arrays. Tolerances:
     rtol 2e-3 (XLA's float32 lgamma against torch's, tests/test_train.py:35);
   - schedules over 20 steps and optimizers over 5 steps vs optax: rtol 1e-5
     (the port evaluates schedules in Python floats, optax in float32);
-  - loss_fn at max_signal_len 50, float32, dropout key 9, pallas_train False
-    and "core": loss rtol 1e-4, every gradient leaf rtol 2e-3 / atol 2e-4 (the
-    JAX package's own bar between its rungs, tests/test_pallas.py:303-317);
-  - three Adam steps from carried-across parameters: parameters rtol 1e-4
-    (atol 1e-6 for entries near zero);
+  - loss_fn at max_signal_len 50, float32, dropout key 9, pallas_train False,
+    "core", "block" and True: loss rtol 1e-4, every gradient leaf rtol 2e-3 /
+    atol 2e-4 (the JAX package's own bar between its rungs,
+    tests/test_pallas.py:303-317);
+  - three Adam steps at "core" and at "block" from carried-across parameters:
+    parameters rtol 1e-4 (atol 1e-6 for entries near zero);
   - checkpoints and train states: exact round trip between the packages.
 """
 
@@ -36,7 +37,7 @@ from seq2squiggle_tpu.train import optimizers as jopt
 from seq2squiggle_tpu_torch import cli, prng
 from seq2squiggle_tpu_torch.models import fft_model as tmodel
 from seq2squiggle_tpu_torch.models.weights import load_checkpoint, params_from_jax, params_to_jax
-from seq2squiggle_tpu_torch.ops import attn_core
+from seq2squiggle_tpu_torch.ops import attn_core, block_train
 from seq2squiggle_tpu_torch.train import loop as tloop
 from seq2squiggle_tpu_torch.train import losses as tlosses
 from seq2squiggle_tpu_torch.train import optimizers as topt
@@ -190,19 +191,49 @@ def test_unported_training_options_raise(tmp_path):
 @pytest.mark.parametrize("mode,dtype,on_cuda,want", [
     ("core", torch.bfloat16, True, "core"), ("core", torch.float32, False, "core"),
     (False, torch.bfloat16, True, "plain"), ("auto", torch.float32, True, "plain"),
-    ("auto", torch.bfloat16, False, "plain"), ("auto", torch.bfloat16, True, None),
-    (True, torch.float32, False, None), ("block", torch.bfloat16, False, None),
+    ("auto", torch.bfloat16, False, "plain"), ("auto", torch.bfloat16, True, "block"),
+    (True, torch.float32, False, "block"), ("block", torch.bfloat16, False, "block"),
 ])
 def test_train_kernel_mode(mode, dtype, on_cuda, want):
     """`on_cuda=True` stands in for a tensor on a GPU (there is none here)."""
     x = torch.zeros(1, 50, 64, dtype=dtype)
     cfg = dict(load_config(None), pallas_train=mode)
     assert tmodel._train_kernel_mode(cfg, x[:, :16], on_cuda) == "plain"  # short: plain
-    if want is None:
-        with pytest.raises(NotImplementedError, match="B3"):
-            tmodel._train_kernel_mode(cfg, x, on_cuda)
-    else:
-        assert tmodel._train_kernel_mode(cfg, x, on_cuda) == want
+    assert tmodel._train_kernel_mode(cfg, x, on_cuda) == want
+    jwant = {"plain": "xla"}.get(want, want)
+    if on_cuda is False and not (mode == "auto" and dtype == torch.bfloat16):
+        # where the answer does not hang on the backend, the JAX package gives the same
+        assert jmodel._train_kernel_mode(cfg, jnp.zeros((1, 50, 64)), None) == jwant
+    with pytest.raises(ValueError, match="Unknown pallas_train"):
+        tmodel._train_kernel_mode(dict(cfg, pallas_train="fastest"), x, on_cuda)
+
+
+@pytest.mark.parametrize("mode,L,whole_block,want", [
+    ("block", 40, False, "core"),  # an encoder with L > 32 in block mode: the core rung
+    ("block", 40, True, "block"),  # the decoder: the whole-block rung
+    ("block", 16, True, "plain"), ("core", 40, True, "core"), (False, 40, True, "plain"),
+])
+def test_train_blocks_rung_by_stack(monkeypatch, mode, L, whole_block, want):
+    """_train_blocks is shared by the encoder and the decoder: only the
+    decoder (whole_block=True) takes the block rung, as the JAX package's
+    encoder_forward (`use_core = ... in ("core", "block")`)."""
+    seen = []
+
+    def plain(block, h, n_head, dropout_rate, dropout_key, packed_core):
+        seen.append("core" if packed_core else "plain")
+        return h
+
+    def whole(h, block, s_a, s_f, n_head):
+        seen.append("block")
+        assert s_a is None and s_f is None  # no dropout key: no scales
+        return h
+
+    monkeypatch.setattr(tmodel, "fft_block", plain)
+    monkeypatch.setattr(tmodel, "fused_block_train", whole)
+    cfg = dict(load_config(None), pallas_train=mode)
+    tmodel._train_blocks([{}, {}], torch.zeros(1, L, 64), 8, cfg, 0.0, None,
+                         whole_block=whole_block)
+    assert seen == [want, want]
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +241,7 @@ def test_train_kernel_mode(mode, dtype, on_cuda, want):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", [False, "core"])
+@pytest.mark.parametrize("mode", [False, "core", "block", True])
 def test_loss_fn_value_and_grads_match_jax(mode):
     cfg = tiny_config(pallas_train=mode)
     jparams = jmodel.init_params(cfg, jax.random.key(0))
@@ -223,12 +254,14 @@ def test_loss_fn_value_and_grads_match_jax(mode):
     (ref_loss, ref_metrics), ref_grads = jax.value_and_grad(jloss, has_aux=True)(jparams)
 
     tparams = tmodel.to_train_params(params_from_jax(jparams), CPU)
-    before = (attn_core.launches_fwd, attn_core.launches_bwd)
+    before = (attn_core.launches_fwd, attn_core.launches_bwd,
+              block_train.launches_fwd, block_train.launches_bwd)
     loss, metrics = tloop.loss_fn(tparams, to_torch(batch), torch.from_numpy(mask), cfg,
                                   prng.key(9))
     paths, leaves = zip(*tmodel.tree_leaves(tparams))
     grads = torch.autograd.grad(loss, leaves)
-    assert (attn_core.launches_fwd, attn_core.launches_bwd) == before  # CPU: no launch
+    assert (attn_core.launches_fwd, attn_core.launches_bwd,
+            block_train.launches_fwd, block_train.launches_bwd) == before  # CPU: no launch
 
     np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-4)
     for k in ref_metrics:
@@ -240,8 +273,9 @@ def test_loss_fn_value_and_grads_match_jax(mode):
                                    err_msg="/".join(p))
 
 
-def test_three_adam_steps_match_jax():
-    cfg = tiny_config(pallas_train="core", lr=1e-3)
+@pytest.mark.parametrize("mode", ["core", "block"])
+def test_three_adam_steps_match_jax(mode):
+    cfg = tiny_config(pallas_train=mode, lr=1e-3)
     jparams = jmodel.init_params(cfg, jax.random.key(2))
     tparams = tmodel.to_train_params(params_from_jax(jparams), CPU)
 
@@ -360,6 +394,44 @@ def test_train_resume_continues_through_cli(tmp_path):
     assert (tmp_path / "ckpt" / "model-epoch2.npz").exists()
     steps = [json.loads(line).get("step") for line in open(tmp_path / "ckpt" / "metrics.jsonl")]
     assert steps == sorted(steps)
+
+
+def test_train_cli_at_block_writes_a_checkpoint_the_jax_package_loads(tmp_path):
+    """`train` at `pallas_train: block` on the CPU (the plain versions of the
+    whole-block kernels, forward and hand-written backward)."""
+    import yaml
+
+    cfg = tiny_config(max_signal_len=250, pallas_train="block", max_epochs=1)
+    train_dir = _make_training_dir(tmp_path, cfg, n_files=2, chunks_per_file=12)
+    model_path = tmp_path / "ckpt" / "model.npz"
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    seen = []
+    real = block_train.fused_block_train_backward_reference
+
+    def counted(*args):
+        seen.append(tuple(args[0].shape))
+        return real(*args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(block_train, "fused_block_train_backward_reference", counted)
+        res = CliRunner().invoke(cli.main, ["train", train_dir, "-y", str(tmp_path / "cfg.yaml"),
+                                            "-m", str(model_path), "-s", "1", "--device", "cpu"])
+    assert res.exit_code == 0, (res.output, res.exception)
+    assert seen and all(shape[1:] == (250, 64) for shape in seen)  # the decoder's blocks
+    assert len(seen) % 2 == 0  # two blocks per train step
+    rows = [json.loads(line) for line in open(tmp_path / "ckpt" / "metrics.jsonl")]
+    losses = [v for r in rows for k, v in r.items() if k.endswith("total_loss")]
+    assert losses and all(np.isfinite(v) for v in losses)
+    jparams, jcfg = jax_load_native(str(model_path))
+    assert jcfg["pallas_train"] == "block"
+    tparams, _ = load_checkpoint(str(model_path))
+    ref = jax_leaves(jparams)
+    for path, v in torch_leaves(tparams).items():
+        np.testing.assert_array_equal(v.numpy(), ref[path])
+    # and it differs from the initial parameters: the steps moved the decoder
+    init = torch_leaves(tmodel.init_params(cfg, prng.key(1)))
+    assert any(not torch.equal(v, init[path]) for path, v in torch_leaves(tparams).items()
+               if path.startswith("decoder/blocks"))
 
 
 def test_train_cli_defaults_to_cuda(tmp_path):
