@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits non-zero):
   4. predict main path: `simulate_run` on the GPU with the committed R10
      weights, the default bf16 config and batch size 1024, reference mode
      over a synthetic genome made from a fixed seed; the BLOW5 is read back
-     and the kernel must have been launched 4 times per batch;
+     and the kernel must have been launched 4 times per batch (and the pair
+     kernel never);
   5. attention-core kernels vs plain: forward and backward at the training
      shape (512, 250, 64) and a ragged (3, 37, 64), 8 heads, f32 (forward
      rtol/atol 1e-5, gradients rtol 1e-4 / atol 1e-5) and bf16 (forward
@@ -65,7 +66,29 @@ Phases (any failure raises and the script exits non-zero):
      steps and core launches 0, every logged loss finite, the validation loss
      lower at the end than for the initial parameters, the checkpoint files
      present, model.npz loading and running one predict_step, and `--resume`
-     running exactly the third epoch.
+     running exactly the third epoch;
+ 11. pair and `packed` vs plain: the two-block kernel against its plain
+     version (bars of phase 2) and against two one-block launches (bit-equal)
+     at 1024 x 250 and a ragged (3, 37), bf16 and f32, both softmax forms (f32
+     at L = 250 does not fit four buffers in shared memory and stages the
+     activation between the blocks through the output rows, in the same
+     launch); the one-block kernel at `packed=False`, L = 250 and
+     `packed=True`, L = 16 against plain; the underflow input finite through
+     the pair; median times of the pair, of two one-block launches and of the
+     plain version;
+ 12. profiling variants vs plain: every variant (a, b, c, d) and stage (proj
+     ... full) of ops/fft_block_variants.py at (2048, 250, 64) bf16 and a
+     ragged (3, 37) f32 against its plain version (bars of phase 2; the
+     stages' f32 atol scaled by max(1, max|plain|), their sinks being
+     unnormalised sums), c bit-equal to b and b to the fused block's exact
+     form; then scripts/profile_torch_block_variants.py's interleaved timing
+     (2 rounds), launches counted, the stage differences printed;
+ 13. predict main path at `pallas_pair: true`: phase 4's run with that knob;
+     per batch 2 one-block launches (the encoder) and 1 pair launch, the
+     BLOW5 equal record for record to phase 4's; then a small POD5 run (where
+     the machine has pyarrow and zstandard, which the POD5 writer needs on the
+     host; reported as not made otherwise) and a small R9-profile (k = 6) run
+     on the card, each read back.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches on its main path, error, times and bound (the least time the card
@@ -308,42 +331,210 @@ def phase_step(host_params, dev):
         f"samples exact {(d == 0).mean():.4f}")
 
 
-def phase_main_path(dev):
+def _predict_run(dev, out_name, n_reads, config=None, weights=R10, **over):
+    """One `simulate_run` on the card over the synthetic genome of SEED;
+    returns (stats, one-block launches, pair launches, the records read back
+    from the output as (read id, signal) pairs)."""
     from seq2squiggle_tpu_torch.config import load_config
-    from seq2squiggle_tpu_torch.io.slow5 import read_slow5
     from seq2squiggle_tpu_torch.ops import fft_block
     from seq2squiggle_tpu_torch.runtime.simulate import simulate_run
 
-    n_reads = 100
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         rng = np.random.default_rng(SEED)
         fasta = pathlib.Path(tmp) / "genome.fasta"
         fasta.write_text(">synthetic\n" + "".join(rng.choice(list("ACGT"), 200_000)) + "\n")
-        out = pathlib.Path(tmp) / "out.blow5"
-        cfg = load_config(None)  # bf16 compute, use_pallas auto
-        fft_block.launches = 0
-        stats = simulate_run(
-            config=cfg, saved_weights=str(R10), fasta=str(fasta), read_input=False,
+        out = pathlib.Path(tmp) / out_name
+        kwargs = dict(
+            config=config or load_config(None),  # bf16 compute, use_pallas auto
+            saved_weights=str(weights), fasta=str(fasta), read_input=False,
             n=n_reads, r=1000, c=-1, out=str(out), profile="dna-r10-prom",
             dwell_mean=None, dwell_std=0.0, noise_std=2.0, noise_sampling=True,
             duration_sampling=True, distr="expon", predict_batch_size=BATCH,
             export_every_n_samples=1_000_000, seed=SEED, show_progress=False,
             device=dev,
         )
-        launches = fft_block.launches
-        _, recs = read_slow5(str(out))
-    n_batches = math.ceil(stats["chunks"] / BATCH)
+        kwargs.update(over)
+        fft_block.launches = fft_block.pair_launches = 0
+        stats = simulate_run(**kwargs)
+        launches, pair_launches = fft_block.launches, fft_block.pair_launches
+        if out_name.endswith(".pod5"):
+            from seq2squiggle_tpu_torch.io.pod5_native import read_pod5
+
+            recs = [(r["read_id"], np.asarray(r["signal"])) for r in read_pod5(str(out))["reads"]]
+        else:
+            from seq2squiggle_tpu_torch.io.slow5 import read_slow5
+
+            recs = [(r["read_id"], np.asarray(r["signal"])) for r in read_slow5(str(out))[1]]
+    return stats, launches, pair_launches, recs
+
+
+def _check_records(what, stats, recs, n_reads):
     check(len(recs) == stats["reads"] >= 0.9 * n_reads,
-          f"main path: {len(recs)} records for {stats['reads']} reads")
-    check(all(len(r["signal"]) > 0 for r in recs), "main path: empty signal")
-    check(sum(len(r["signal"]) for r in recs) == stats["samples"], "sample count")
-    check(launches == 4 * n_batches,
-          f"kernel launched {launches} times for {n_batches} batches (want 4 per batch)")
-    log(f"main path: {stats['reads']} reads, {stats['chunks']} chunks in {n_batches} "
+          f"{what}: {len(recs)} records for {stats['reads']} reads")
+    check(all(len(sig) > 0 for _, sig in recs), f"{what}: empty signal")
+    check(sum(len(sig) for _, sig in recs) == stats["samples"], f"{what}: sample count")
+
+
+def phase_main_path(dev, pair: bool):
+    """Phases 4 and 13: `simulate_run` at full width with the launch counters
+    reset just before and read just after. Returns (one-block launches, pair
+    launches, the records read back)."""
+    from seq2squiggle_tpu_torch.config import load_config
+
+    n_reads = 100
+    what = "main path at pallas_pair: true" if pair else "main path"
+    cfg = dict(load_config(None), pallas_pair=True) if pair else None
+    stats, launches, pair_launches, recs = _predict_run(dev, "out.blow5", n_reads, cfg)
+    n_batches = math.ceil(stats["chunks"] / BATCH)
+    _check_records(what, stats, recs, n_reads)
+    want = (2 * n_batches, n_batches) if pair else (4 * n_batches, 0)
+    check((launches, pair_launches) == want,
+          f"{what}: (one-block, pair) launches {(launches, pair_launches)} for {n_batches} "
+          f"batches, want {want}")
+    log(f"{what}: {stats['reads']} reads, {stats['chunks']} chunks in {n_batches} "
         f"batches, {stats['samples']} samples in {stats['seconds']:.3f} s "
-        f"({stats['ksamples_per_s']:.1f} kSamples/s), fused_fft_block launches {launches}")
-    return launches
+        f"({stats['ksamples_per_s']:.1f} kSamples/s), fused_fft_block launches {launches}, "
+        f"fused_fft_block_pair launches {pair_launches}")
+    return launches, pair_launches, recs
+
+
+def phase_other_modes(dev):
+    """The tail of phase 13: POD5 output and the R9 (k = 6) profile on the card.
+    The POD5 container is written on the host with pyarrow and zstandard; on a
+    machine that lacks either, that run is reported as not made (the device
+    step under it is the BLOW5 run's; the CPU tests hold the POD5 output
+    against the JAX package's)."""
+    import importlib.util
+
+    missing = [m for m in ("pyarrow", "zstandard") if importlib.util.find_spec(m) is None]
+    for what, out_name, kw in (
+            ("POD5 run", "out.pod5", {}),
+            ("R9 run", "out.blow5", dict(weights=ROOT / "assets" / "bench-weights-R9.npz",
+                                         profile="dna-r9-prom"))):
+        if out_name.endswith(".pod5") and missing:
+            log(f"{what}: NOT MADE, this machine has no {' and no '.join(missing)} "
+                "(host libraries of the POD5 writer)")
+            continue
+        stats, launches, _, recs = _predict_run(dev, out_name, 20, **kw)
+        _check_records(what, stats, recs, 20)
+        check(launches == 4 * math.ceil(stats["chunks"] / BATCH), f"{what}: {launches} launches")
+        log(f"{what}: {stats['reads']} reads, {stats['samples']} samples read back from "
+            f"{out_name}, fused_fft_block launches {launches}")
+
+
+def phase_pair(params_by_dtype, dev):
+    """Phase 11: the pair kernel and the `packed` argument against plain."""
+    from seq2squiggle_tpu_torch.ops import fft_block as fb
+
+    gen = torch.Generator().manual_seed(SEED)
+    result = {}
+
+    def hold(what, got, ref, dtype):
+        err = (got.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        if dtype == torch.bfloat16:
+            check(err <= bf16_tol(ref), f"{what}: err {err} > {bf16_tol(ref)}")
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        return err
+
+    for dtype, params in params_by_dtype.items():
+        name = str(dtype)[6:]
+        b0, b1 = params["decoder"]["blocks"]
+        for B, L in ((3, 37), (BATCH, 250)):
+            x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
+            for packed in (False, True):
+                what = f"pair {name} {B}x{L} packed={packed}"
+                pair = fb.fused_fft_block_pair(x, b0, b1, 8, packed=packed)
+                two = fb.fused_fft_block(fb.fused_fft_block(x, b0, 8, packed=packed), b1, 8,
+                                         packed=packed)
+                torch.cuda.synchronize()
+                check(torch.equal(pair, two), f"{what}: not bit-equal to two one-block launches")
+                err = hold(what, pair, fb.fused_fft_block_pair_reference(x, b0, b1, 8, packed),
+                           dtype)
+                msg = f"{what}: bit-equal to two launches, vs plain max|err| {err:.3g}"
+                if B == BATCH and packed and dtype == torch.bfloat16:
+                    times = {
+                        "pair": median_ms(lambda: fb.fused_fft_block_pair(x, b0, b1, 8)),
+                        "two_launches": median_ms(lambda: fb.fused_fft_block(
+                            fb.fused_fft_block(x, b0, 8), b1, 8)),
+                        "plain": median_ms(
+                            lambda: fb.fused_fft_block_pair_reference(x, b0, b1, 8)),
+                        "one_block_exact": median_ms(
+                            lambda: fb.fused_fft_block(x, b0, 8, packed=False)),
+                        "one_block_shift": median_ms(lambda: fb.fused_fft_block(x, b0, 8)),
+                    }
+                    result = dict(times, err=err)
+                    msg += "; ms " + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
+                log(msg)
+        for B, L, packed in ((BATCH, 250, False), (BATCH, 16, True), (3, 250, False),
+                             (3, 16, True)):
+            x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
+            err = hold(f"packed={packed} {name} {B}x{L}", fb.fused_fft_block(x, b0, 8, packed),
+                       fb.fused_fft_block_reference(x, b0, 8, packed), dtype)
+            log(f"one block {name} B={B:4d} L={L:3d} packed={packed}: vs plain max|err| {err:.3g}")
+        out = fb.fused_fft_block_pair(underflow_input(gen).to(dev, dtype), b0, b1, 8, packed=True)
+        check(bool(torch.isfinite(out).all()), f"pair: underflow input gave non-finite {name}")
+        log(f"pair underflow input {name}: finite")
+    return result
+
+
+def phase_variants(params_by_dtype, dev):
+    """Phase 12: the profiling variants against plain, then the timing script."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import profile_torch_block_variants as script
+
+    from seq2squiggle_tpu_torch.ops import fft_block as fb
+    from seq2squiggle_tpu_torch.ops import fft_block_variants as tv
+
+    gen = torch.Generator().manual_seed(SEED)
+    calls = ([("abc", v, tv.fused_abc, tv.fused_abc_reference) for v in tv.ABC_VARIANTS]
+             + [("d", v, tv.fused_d, tv.fused_d_reference) for v in tv.D_VARIANTS]
+             + [("parts", st, tv.fused_parts, tv.fused_parts_reference) for st in tv.STAGES])
+    worst = {"abc": 0.0, "d": 0.0, "parts": 0.0}
+    times = {}
+    for dtype, (B, L) in ((torch.float32, (3, 37)), (torch.bfloat16, (2048, 250))):
+        name = str(dtype)[6:]
+        block = params_by_dtype[dtype]["decoder"]["blocks"][0]
+        x = (torch.randn(B, L, 64, generator=gen) * 0.5).to(dev, dtype)
+        b = tv.fused_abc(x, block, 8, "b")
+        check(torch.equal(tv.fused_abc(x, block, 8, "c"), b), f"variant c != b ({name})")
+        check(torch.equal(fb.fused_fft_block(x, block, 8, packed=False), b),
+              f"variant b != the fused block's exact form ({name})")
+        errs = []
+        for group, choice, fn, ref_fn in calls:
+            got, ref = fn(x, block, 8, choice), ref_fn(x, block, 8, choice)
+            torch.cuda.synchronize()
+            what = f"fused_{group} {choice} {name} {B}x{L}"
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = max(1.0, ref.float().abs().max().item())
+            check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+            if dtype == torch.bfloat16:
+                check(err <= 4 * 2.0 ** -8 * scale, f"{what}: err {err}")
+                worst[group] = max(worst[group], err)
+            else:
+                partial = group == "parts" and choice != "full"
+                torch.testing.assert_close(got, ref, rtol=1e-4,
+                                           atol=1e-5 * (scale if partial else 1.0))
+            errs.append(f"{choice} {err:.3g}")
+            if dtype == torch.bfloat16 and (group, choice) in (("abc", "b"), ("d", "d"),
+                                                                ("parts", "full")):
+                times[group] = (median_ms(lambda: fn(x, block, 8, choice)),
+                                median_ms(lambda: ref_fn(x, block, 8, choice), iters=5))
+            del got, ref
+        log(f"variants vs plain {name} {B}x{L}: c bit-equal to b, b to the fused block's exact "
+            f"form; max|err| " + ", ".join(errs))
+    tv.launches_abc = tv.launches_d = tv.launches_parts = 0
+    prof = script.profile(rounds=2)
+    launches = {"abc": tv.launches_abc, "d": tv.launches_d, "parts": tv.launches_parts}
+    check(all(n > 0 for n in launches.values()), f"variant launches {launches}")
+    log("variants, ms per block at (2048, 250, 64) bf16, min of 2 interleaved rounds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prof["ms"].items()))
+    log("stage differences, ms: "
+        + ", ".join(f"{k} +{v:.3f}" for k, v in prof["stage_delta_ms"].items()))
+    return {g: {"launches": launches[g], "err": worst[g], "ms": times[g][0],
+                "plain_ms": times[g][1]} for g in worst}, prof
 
 
 def phase_core_kernels(dev):
@@ -731,7 +922,7 @@ def main() -> int:
               for dt in (torch.bfloat16, torch.float32)}
     worst_bf16, times = phase_kernel(params, dev)
     phase_step(host_params, dev)
-    launches = phase_main_path(dev)
+    launches, _, recs = phase_main_path(dev, pair=False)
     core = phase_core_kernels(dev)[torch.bfloat16]
     phase_train_step(dev, "core", "core")
     _, _, core_fwd_launches, core_bwd_launches = phase_train_main_path(
@@ -740,6 +931,14 @@ def main() -> int:
     phase_train_step(dev, "block", "auto")
     block_fwd_launches, block_bwd_launches, _, _ = phase_train_main_path(
         dev, None, epochs=2, steps=TRAIN_STEPS, resume=True)
+    pair = phase_pair(params, dev)
+    variants, variant_profile = phase_variants(params, dev)
+    _, pair_launches, pair_recs = phase_main_path(dev, pair=True)
+    check(len(pair_recs) == len(recs)
+          and all(a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(recs, pair_recs)),
+          "pallas_pair: true wrote other records than pallas_pair: false")
+    log(f"main path at pallas_pair: true: {len(pair_recs)} records equal to phase 4's")
+    phase_other_modes(dev)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
@@ -755,6 +954,19 @@ def main() -> int:
                 "max_abs_err": got[f"{direction}_err"], "ms": got[direction],
                 "plain_ms": got[f"{direction}_plain"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": got.get(f"{direction}_library")}
+
+    pair_bound = bound(2 * BATCH * 250 * 64 * 2 + 2 * fused_block_work(0, 250, bf16)[0],
+                       2 * fused_block_work(BATCH, 250, bf16)[1], bf16)
+    variant_bound = bound(*fused_block_work(2048, 250, bf16), bf16)
+
+    def variant_entry(group, replaces, names):
+        got = variants[group]
+        return {"ms_per_block_interleaved": {n: variant_profile["ms"][n] for n in names},
+                "name": f"fused_{group}", "route": "cuda",
+                "source": "seq2squiggle_tpu_torch/csrc/fft_block_variants.cu",
+                "replaces": f"scripts/profiling/{replaces}", "launches": got["launches"],
+                "max_abs_err": got["err"], "ms": got["ms"], "plain_ms": got["plain_ms"],
+                "bound_ms": variant_bound[0], "bound_by": variant_bound[1], "library_ms": None}
 
     kernels = {"kernels": [{
         "name": "fused_fft_block",
@@ -779,6 +991,16 @@ def main() -> int:
               block_fwd_launches, block, "fwd", block_train_work),
         entry("fused_block_train_bwd", "block_train.cu", "block_train.py:335",
               block_bwd_launches, block, "bwd", block_train_work),
+        {"name": "fused_fft_block_pair", "route": "cuda",
+         "source": "seq2squiggle_tpu_torch/csrc/fft_block.cu",
+         "replaces": "seq2squiggle_tpu/ops/pallas/fft_block.py:466", "launches": pair_launches,
+         "max_abs_err": pair["err"], "ms": pair["pair"], "plain_ms": pair["plain"],
+         "bound_ms": pair_bound[0], "bound_by": pair_bound[1], "library_ms": None,
+         "two_launches_ms": pair["two_launches"]},
+        variant_entry("abc", "profile_abc.py:130", ("a", "b", "c")),
+        variant_entry("d", "profile_d.py:95", ("b", "d", "block exact", "block shift")),
+        dict(variant_entry("parts", "profile_parts2.py:109", variant_profile["stage_delta_ms"]),
+             stage_delta_ms=variant_profile["stage_delta_ms"]),
     ]}
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seq2squiggle_tpu"))

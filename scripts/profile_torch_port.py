@@ -1,7 +1,7 @@
 """Profile the PyTorch port's main paths on one GPU: `simulate_run` (raw
 wire) or, with --train, the train step.
 
-    python scripts/profile_torch_port.py [--reads 300] [--out-dir build/profile]
+    python scripts/profile_torch_port.py [--reads 300] [--pair] [--out-dir build/profile]
     python scripts/profile_torch_port.py --train [--out-dir build/profile]
 
 Runs in one process, with the committed R10 weights, the default bf16 config
@@ -18,6 +18,13 @@ reference mode (the input of chip_smoke.py's main path):
   4. the --reads run under cProfile (on Python 3.12 it sees the writer
      thread too): the top host functions by cumulative time go to
      <out-dir>/cprofile.txt.
+
+With --pair, step 2 also runs --reads with `pallas_pair: true` (the decoder's
+two blocks in one launch) between two runs without it, before any profiler is
+attached, and step 3 is repeated with it, so that the rates, the launch
+counts, the device time of the block kernels and the device-busy share of
+both settings come from one process on one card; that table goes to
+<out-dir>/profile_pair.txt.
 
 With --train: the default config at full width (bf16, batch 512, Adam,
 dropout on) on chip_smoke.py's synthetic chunks; 5 warm-up steps, then 10
@@ -60,9 +67,10 @@ SEED = 7
 BATCH = 1024
 
 
-def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int) -> dict:
+def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False) -> dict:
     return simulate_run(
-        config=load_config(None), saved_weights=str(R10), fasta=str(fasta),
+        config=dict(load_config(None), pallas_pair=pair), saved_weights=str(R10),
+        fasta=str(fasta),
         read_input=False, n=n_reads, r=1000, c=-1, out=str(out),
         profile="dna-r10-prom", dwell_mean=None, dwell_std=0.0, noise_std=2.0,
         noise_sampling=True, duration_sampling=True, distr="expon",
@@ -81,11 +89,11 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_run(fasta, out, n_reads, out_dir: pathlib.Path) -> dict:
+def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats = run(fasta, out, n_reads)
+        stats = run(fasta, out, n_reads, pair)
     torch.cuda.synchronize()
     avg = prof.key_averages()
 
@@ -97,10 +105,12 @@ def profile_run(fasta, out, n_reads, out_dir: pathlib.Path) -> dict:
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     block = [e for e in device if "fft_block_kernel" in e.name]
+    pairs = [e for e in device if "fft_block_pair_kernel" in e.name]
     busy_s = _union_us((e.time_range.start, e.time_range.end) for e in device) / 1e6
     sort = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
             else "self_cuda_time_total")
-    (out_dir / "profile.txt").write_text(avg.table(sort_by=sort, row_limit=40))
+    table = "profile_pair.txt" if pair else "profile.txt"
+    (out_dir / table).write_text(avg.table(sort_by=sort, row_limit=40))
     return {
         "reads": stats["reads"], "chunks": stats["chunks"], "samples": stats["samples"],
         "wall_s": stats["seconds"],
@@ -112,6 +122,8 @@ def profile_run(fasta, out, n_reads, out_dir: pathlib.Path) -> dict:
         "device_idle_share": 1.0 - busy_s / stats["seconds"],
         "fft_block_launches": len(block),
         "fft_block_device_s": sum(e.time_range.elapsed_us() for e in block) / 1e6,
+        "fft_block_pair_launches": len(pairs),
+        "fft_block_pair_device_s": sum(e.time_range.elapsed_us() for e in pairs) / 1e6,
     }
 
 
@@ -210,6 +222,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=300)
     ap.add_argument("--out-dir", default=str(ROOT / "build" / "profile"))
+    ap.add_argument("--pair", action="store_true",
+                    help="repeat the steady and the profiled run with pallas_pair: true")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the predict path")
     args = ap.parse_args()
@@ -234,16 +248,23 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         fasta.write_text(">synthetic\n" + "".join(rng.choice(list("ACGT"), 200_000)) + "\n")
         out = pathlib.Path(tmp) / "out.blow5"
-        for name, n in (("warm", 30), ("steady", args.reads), ("steady_1000", 1000)):
-            fft_block.launches = 0
-            stats = run(fasta, out, n)
+        runs = [("warm", 30, False), ("steady", args.reads, False)]
+        if args.pair:  # in turns, and before a profiler slows the launches
+            runs += [("pair_steady", args.reads, True), ("steady_again", args.reads, False)]
+        for name, n, pair in [*runs, ("steady_1000", 1000, False)]:
+            fft_block.launches = fft_block.pair_launches = 0
+            stats = run(fasta, out, n, pair)
             stats["fft_block_launches"] = fft_block.launches
+            stats["fft_block_pair_launches"] = fft_block.pair_launches
             print(name, stats, flush=True)
             result[name] = stats
         result["profiled"] = profile_run(fasta, out, args.reads, out_dir)
         print("profiled", result["profiled"], flush=True)
         result["cprofiled"] = cprofile_run(fasta, out, args.reads, out_dir)
         print("cprofiled", result["cprofiled"], flush=True)
+        if args.pair:
+            result["pair_profiled"] = profile_run(fasta, out, args.reads, out_dir, pair=True)
+            print("pair profiled", result["pair_profiled"], flush=True)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from .. import prng
 from ..ops.attention import _maybe_dropout, fft_block, linear
 from ..ops.block_train import fused_block_train, make_dropout_scales
-from ..ops.fft_block import fused_fft_block
+from ..ops.fft_block import fused_fft_block, fused_fft_block_pair
 from ..ops.positional import sinusoid_encoding_table
 
 
@@ -48,15 +48,20 @@ def _use_fused_blocks(config: dict, x: torch.Tensor) -> bool:
     return False
 
 
-def _check_kernel_knobs(config: dict) -> None:
-    if config.get("pallas_pair", "auto") not in ("auto", False):
-        raise NotImplementedError(
-            "pallas_pair (both decoder blocks in one kernel) is not ported to "
-            "the GPU yet: ROADMAP.md, kernel queue B5")
-    if config.get("pallas_packed", "auto") != "auto":
-        raise NotImplementedError(
-            "pallas_packed is not a knob of the GPU block kernel: it picks the "
-            "softmax shift by sequence length, as pallas_packed: auto does")
+def _packed_mode(config: dict):
+    """config 'pallas_packed' -> the fused block's `packed` argument: None
+    for `auto` (the softmax form by sequence length), else the bool."""
+    mode = config.get("pallas_packed", "auto")
+    return None if mode == "auto" else bool(mode)
+
+
+def _pair_mode(config: dict) -> bool:
+    """config 'pallas_pair' -> run the decoder's two blocks in one kernel.
+    `auto` means off, as in the JAX package: the pair saves one round trip of
+    the activation through device memory and costs a fourth shared-memory
+    buffer (PERF.md has its time beside two one-block launches)."""
+    mode = config.get("pallas_pair", "auto")
+    return False if mode == "auto" else bool(mode)
 
 
 def _train_kernel_mode(config: dict, x: torch.Tensor,
@@ -109,11 +114,17 @@ def _train_blocks(blocks, h: torch.Tensor, n_head: int, config: dict, rate: floa
     return h
 
 
-def _blocks(blocks, h: torch.Tensor, n_head: int, config: dict) -> torch.Tensor:
+def _blocks(blocks, h: torch.Tensor, n_head: int, config: dict,
+            may_pair: bool = False) -> torch.Tensor:
+    """The inference forward of a block stack. `may_pair` is true for the
+    decoder, which takes the two-block kernel when `pallas_pair` is on and it
+    has exactly two blocks; the encoder never pairs (as the JAX package)."""
     if _use_fused_blocks(config, h):
-        _check_kernel_knobs(config)
+        packed = _packed_mode(config)
+        if may_pair and _pair_mode(config) and len(blocks) == 2:
+            return fused_fft_block_pair(h, blocks[0], blocks[1], n_head, packed=packed)
         for block in blocks:
-            h = fused_fft_block(h, block, n_head)
+            h = fused_fft_block(h, block, n_head, packed=packed)
         return h
     for block in blocks:
         h = fft_block(block, h, n_head)
@@ -288,7 +299,7 @@ def decoder_forward(params: dict, x: torch.Tensor, config: dict,
         h = _train_blocks(dec["blocks"], h, config["decoder_heads"], config, rate,
                           dropout_key, whole_block=True)
     else:
-        h = _blocks(dec["blocks"], h, config["decoder_heads"], config)
+        h = _blocks(dec["blocks"], h, config["decoder_heads"], config, may_pair=True)
     return F.relu(linear(dec["out_linear"], h))
 
 

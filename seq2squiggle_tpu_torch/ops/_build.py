@@ -65,13 +65,15 @@ def _lib_path() -> pathlib.Path:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.s2s_fft_block.restype = ctypes.c_int
-    lib.s2s_fft_block.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    # the fused block, its pair and its profiling variants share one argument
+    # list: x, out, weight pointers, B, L, dtype, 1/sqrt(d_k), one knob, stream
+    for entry in ("s2s_fft_block", "s2s_fft_block_pair", "s2s_fft_block_abc",
+                  "s2s_fft_block_d", "s2s_fft_block_parts"):
+        fn = getattr(lib, entry)
+        fn.restype = c_int
+        fn.argtypes = [ptr, ptr, ctypes.POINTER(ptr), c_int, c_int, c_int, ctypes.c_float,
+                       c_int, ptr]
     lib.s2s_attn_core_fwd.restype = c_int
     lib.s2s_attn_core_fwd.argtypes = [ptr, ptr, ptr, ptr, c_int, c_int, c_int,
                                       ctypes.c_float, ptr]

@@ -8,9 +8,12 @@ per-row counts; StreamingExporter assembles reads and the AsyncWriter thread
 encodes and writes BLOW5/SLOW5 records. While batch N's results copy back,
 the host prepares batch N+1 and queues its step, so the device stays busy.
 
-Not ported yet (each raises NotImplementedError): --num-shards > 1,
---trace-dir, POD5 output, and the packed wire formats (--wire-format other
-than auto or raw; on the port auto means raw).
+Every output format (BLOW5, SLOW5, POD5), profile (R10, R9, RNA) and read
+mode (reads, reference with -n or -c, whole contigs) of the JAX package runs
+through this loop. There is no first-batch kernel ladder: a kernel that fails
+raises. Not ported yet (each raises NotImplementedError): --num-shards > 1,
+--trace-dir, and the packed wire formats (--wire-format other than auto or
+raw; on the port auto means raw).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from .. import prng
 from ..device import resolve_device
 from ..config import check_model_config
 from ..io.reads import get_reads
-from ..io.writers import BLOW5Writer
+from ..io.writers import BLOW5Writer, POD5Writer
 from ..models.fft_model import compute_dtype, count_params, init_params, to_device
 from ..models.weights import load_checkpoint
 from ..profiles import get_profile, update_config_for_profile, update_profile
@@ -44,13 +47,9 @@ WIRE_FORMATS = ("auto", "raw")
 
 def get_writer(out, profile_dict, ideal_mode, profile_name, preserve_read_ids,
                rng, slow5_press="zstd"):
-    """Choose the writer by extension; BLOW5/SLOW5 only on the port."""
+    """Choose the writer by extension: BLOW5/SLOW5 or POD5, both streaming."""
     out = str(out)
-    if out.endswith(".pod5"):
-        raise NotImplementedError(
-            "POD5 output is not ported to the GPU yet (ROADMAP.md, module "
-            "queue A9); write .blow5 or .slow5")
-    if not out.endswith((".blow5", ".slow5")):
+    if not out.endswith((".blow5", ".slow5", ".pod5")):
         raise ValueError("Output file must have .pod5, .slow5, or .blow5 extension.")
     out_dir = os.path.dirname(out)
     if out_dir:
@@ -58,6 +57,8 @@ def get_writer(out, profile_dict, ideal_mode, profile_name, preserve_read_ids,
     if os.path.exists(out):
         logger.warning(f"Output file {out} already exists. File will be deleted.")
         os.remove(out)
+    if out.endswith(".pod5"):
+        return POD5Writer(out, profile_dict, ideal_mode, profile_name, preserve_read_ids, rng)
     return BLOW5Writer(out, profile_dict, ideal_mode, profile_name,
                        preserve_read_ids, rng, slow5_press=slow5_press)
 

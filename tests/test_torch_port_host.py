@@ -178,7 +178,8 @@ def test_native_codec_caches_apart():
 
 def _port_files():
     files = sorted((ROOT / "seq2squiggle_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py",
+                    ROOT / "scripts" / "profile_torch_block_variants.py"]
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")

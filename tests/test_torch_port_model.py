@@ -176,9 +176,18 @@ def test_to_device_casts_block_matrices_only(r10):
     assert tpd["noise_sampler"]["fc1"]["kernel"].dtype == torch.float32
 
 
-def test_pallas_pair_is_not_ported(r10):
+def test_pallas_pair_and_pallas_packed_are_ported(r10):
+    """Neither knob raises any more; on the CPU both run the plain versions,
+    and the pair gives the bits of two blocks (tests/test_torch_port_pair.py
+    holds them against the JAX package)."""
     _, tp = r10
-    cfg = dict(load_config(None), use_pallas=True, pallas_pair=True)
     tpd = tmodel.to_device(tp, torch.device("cpu"), torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.decoder_forward(tpd, torch.zeros(1, 250, 64), cfg)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 250, 64))
+                         .astype(np.float32))
+    base = dict(load_config(None), use_pallas=True)
+    ref = tmodel.decoder_forward(tpd, x, base)
+    assert torch.equal(tmodel.decoder_forward(tpd, x, dict(base, pallas_pair=True)), ref)
+    assert torch.equal(tmodel.decoder_forward(tpd, x, dict(base, pallas_packed=True)), ref)
+    exact = tmodel.decoder_forward(tpd, x, dict(base, pallas_packed=False))
+    assert not torch.equal(exact, ref)
+    torch.testing.assert_close(exact, ref, rtol=2e-3, atol=2e-4)

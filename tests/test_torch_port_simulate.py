@@ -112,22 +112,21 @@ def test_resolve_device_turns_tf32_off():
     (dict(num_shards=2), "num-shards"),
     (dict(trace_dir="trace"), "trace-dir"),
     (dict(wire_format="8"), "wire-format"),
-    (dict(out="x.pod5"), "POD5"),
+    (dict(wire_format="ulp"), "wire-format"),
 ])
 def test_unported_options_raise(tmp_path, override, pattern):
     fasta = _write_fasta(tmp_path / "r.fasta", 1, seed=6)
     kw = _run_kwargs(fasta, tmp_path / "o.blow5", True)
-    if "out" in override:
-        override = dict(out=str(tmp_path / override["out"]))
     kw.update(override)
     with pytest.raises(NotImplementedError, match=pattern):
         simulate_run(**kw, device=torch.device("cpu"))
 
 
 def test_port_never_imports_jax():
-    """Import the port, run a tiny CPU predict_step and one CPU train step in
-    a fresh process (this test process has jax loaded by tests/conftest.py):
-    neither jax nor any module of the JAX package may be loaded after that."""
+    """Import the port, run a tiny CPU predict_step (then one through the
+    fused blocks with `pallas_pair: true`) and one CPU train step in a fresh
+    process (this test process has jax loaded by tests/conftest.py): neither
+    jax nor any module of the JAX package may be loaded after that."""
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import seq2squiggle_tpu_torch",
@@ -140,6 +139,7 @@ def test_port_never_imports_jax():
         "from seq2squiggle_tpu_torch.runtime.predict import PredictKnobs, predict_step",
         "from seq2squiggle_tpu_torch.train.loop import make_train_step",
         "from seq2squiggle_tpu_torch.train.optimizers import build_optimizer",
+        "torch.manual_seed(0)",
         "cfg = load_config(None)",
         "host = init_params(cfg, prng.key(0))",
         "p = to_device(host, torch.device('cpu'), torch.bfloat16)",
@@ -147,6 +147,13 @@ def test_port_never_imports_jax():
         "s, c = predict_step(p, codes, torch.tensor([0, 1]), torch.tensor([0, 0]),",
         "                    prng.key(1), config=cfg, knobs=PredictKnobs())",
         "assert s.shape == (2, 250) and c.shape == (2,)",
+        "pair = dict(cfg, use_pallas=True, pallas_pair=True)",
+        "s2, c2 = predict_step(p, codes, torch.tensor([0, 1]), torch.tensor([0, 0]),",
+        "                      prng.key(1), config=pair, knobs=PredictKnobs())",
+        "s3, c3 = predict_step(p, codes, torch.tensor([0, 1]), torch.tensor([0, 0]),",
+        "                      prng.key(1), config=dict(pair, pallas_pair=False),",
+        "                      knobs=PredictKnobs())",
+        "assert s2.shape == (2, 250) and torch.equal(s2, s3) and torch.equal(c2, c3)",
         "cfg = dict(cfg, compute_dtype='float32', pallas_train='core', max_signal_len=40)",
         "tp = to_train_params(host, torch.device('cpu'))",
         "opt = build_optimizer(cfg, 10)",
@@ -158,80 +165,6 @@ def test_port_never_imports_jax():
         "assert np.isfinite(float(m['total_loss'])) and state['count'] == 1",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',",
         "             'seq2squiggle_tpu'))",
-        "assert not bad, bad",
-        "print('ok')",
-    ])
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    proc = subprocess.run(
-        [sys.executable, "-m", "seq2squiggle_tpu_torch", "predict", fasta,
-         "--read-input", "-o", str(out), "-m", R10, "-s", "3", "--device", "cpu",
-         "--predict-batch-size", "16", "-v", "warning"],
-        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    _, recs = read_slow5(str(out))
-    assert len(recs) == 3
-    assert all(len(r["signal"]) > 0 for r in recs)
-
-
-def test_device_cuda_without_gpu_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        resolve_device("cuda")
-    fasta = _write_fasta(tmp_path / "r.fasta", 1, seed=5)
-    result = CliRunner().invoke(cli.main, [
-        "predict", fasta, "--read-input", "-o", str(tmp_path / "o.blow5"),
-        "-m", R10, "--device", "cuda"])
-    assert result.exit_code != 0
-    assert isinstance(result.exception, RuntimeError)
-    assert not (tmp_path / "o.blow5").exists()
-    with pytest.raises(RuntimeError, match="cuda"):
-        simulate_run(**_run_kwargs(fasta, tmp_path / "o.blow5", True),
-                     device=torch.device("cuda"))
-    assert not (tmp_path / "o.blow5").exists()
-
-
-def test_resolve_device_turns_tf32_off():
-    torch.backends.cuda.matmul.allow_tf32 = True
-    assert resolve_device("cpu") == torch.device("cpu")
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is False
-
-
-@pytest.mark.parametrize("override,pattern", [
-    (dict(num_shards=2), "num-shards"),
-    (dict(trace_dir="trace"), "trace-dir"),
-    (dict(wire_format="8"), "wire-format"),
-    (dict(out="x.pod5"), "POD5"),
-])
-def test_unported_options_raise(tmp_path, override, pattern):
-    fasta = _write_fasta(tmp_path / "r.fasta", 1, seed=6)
-    kw = _run_kwargs(fasta, tmp_path / "o.blow5", True)
-    if "out" in override:
-        override = dict(out=str(tmp_path / override["out"]))
-    kw.update(override)
-    with pytest.raises(NotImplementedError, match=pattern):
-        simulate_run(**kw, device=torch.device("cpu"))
-
-
-def test_port_never_imports_jax():
-    """Import the port and run a tiny CPU predict_step in a fresh process
-    (this test process has jax loaded by tests/conftest.py)."""
-    code = "\n".join([
-        "import sys, torch",
-        "import seq2squiggle_tpu_torch",
-        "import seq2squiggle_tpu_torch.cli, seq2squiggle_tpu_torch.runtime.simulate",
-        "from seq2squiggle_tpu_torch.config import load_config",
-        "from seq2squiggle_tpu_torch import prng",
-        "from seq2squiggle_tpu_torch.models.fft_model import init_params, to_device",
-        "from seq2squiggle_tpu_torch.runtime.predict import PredictKnobs, predict_step",
-        "cfg = load_config(None)",
-        "p = to_device(init_params(cfg, prng.key(0)), torch.device('cpu'), torch.bfloat16)",
-        "codes = torch.randint(1, 5, (2, 24), dtype=torch.uint8)",
-        "s, c = predict_step(p, codes, torch.tensor([0, 1]), torch.tensor([0, 0]),",
-        "                    prng.key(1), config=cfg, knobs=PredictKnobs())",
-        "assert s.shape == (2, 250) and c.shape == (2,)",
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))",
         "assert not bad, bad",
         "print('ok')",
     ])
