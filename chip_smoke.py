@@ -24,12 +24,15 @@ Phases (any failure raises and the script exits non-zero):
      and the kernel must have been launched 4 times per batch (and the pair
      kernel never);
   5. attention-core kernels vs plain: forward and backward at the training
-     shape (512, 250, 64) and a ragged (3, 37, 64), 8 heads, f32 (forward
-     rtol/atol 1e-5, gradients rtol 1e-4 / atol 1e-5) and bf16 (forward
-     within 4 bf16 ULPs of max|plain|, gradients within 8 of
-     max(1, max|plain|)); the underflow input finite in both directions; the
-     backward run twice bit-equal; median times of each kernel, its plain
-     version and F.scaled_dot_product_attention (timed and printed only);
+     shape (512, 250, 64) and, at batch 3, every length of CORE_LENGTHS (the
+     edges of the bf16 kernels' 16-row tiles, and the longest L the f32
+     whole-block backward takes), 8 heads, f32 (forward rtol/atol 1e-5,
+     gradients rtol 1e-4 / atol 1e-5) and bf16 (forward within 4 bf16 ULPs of
+     max|plain|, gradients within 8 of max(1, max|plain|)); the underflow
+     input finite in both directions; the backward run twice bit-equal at
+     each; a digest of the f32 outputs (to compare two trees: `python3
+     chip_smoke.py --core-f32-digest TREE`); median times of each kernel, its
+     plain version and F.scaled_dot_product_attention (timed and printed only);
   6. one train step: f32, `pallas_train: core`, dropout on, the same batch,
      parameters and key on the GPU through the kernels and on the CPU
      through the plain versions (loss rtol 1e-4, every gradient leaf rtol
@@ -102,6 +105,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +123,7 @@ TRAIN_STEPS = 20  # per epoch on the train main path
 CORE_STEPS = 10  # the one epoch of the `pallas_train: core` path
 VALID_STEPS = 2
 SEED = 7
+CORE_LENGTHS = (1, 15, 16, 17, 37, 250, 256, 283)  # phase 5; 250 at the train batch
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type.
 PEAK_BYTES = 3.35e12
@@ -212,10 +217,27 @@ def phase_device():
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)")
+    kernel = "?"
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
     return smi
+
+
+def _kernel_name(mangled: str) -> str:
+    """`name template-arguments` out of a mangled kernel symbol: the name is
+    the run of [a-z0-9_] ending in _kernel that its own length precedes."""
+    for run in re.finditer(r"\d+", mangled):
+        for start in range(run.start(), run.end()):
+            end = run.end() + int(mangled[start:run.end()])
+            name = mangled[run.end():end]
+            if name.endswith("_kernel") and re.fullmatch(r"[a-z0-9_]+", name):
+                rest = mangled[end:]
+                args = rest[:rest.find("Ev")] if rest.startswith("I") and "Ev" in rest else ""
+                return f"{name} {args}".strip()
+    return mangled
 
 
 def underflow_input(gen, L: int = 250) -> torch.Tensor:
@@ -537,6 +559,25 @@ def phase_variants(params_by_dtype, dev):
                 "plain_ms": times[g][1]} for g in worst}, prof
 
 
+def core_f32_digest(dev) -> str:
+    """sha256 over the f32 attention-core kernels' outputs (forward, then gq,
+    gk, gv) at (3, 37, 64) and (512, 250, 64) on inputs from SEED: two trees
+    whose f32 kernels agree bit for bit print the same digest."""
+    import hashlib
+
+    from seq2squiggle_tpu_torch.ops import attn_core as ac
+
+    gen = torch.Generator().manual_seed(SEED)
+    digest = hashlib.sha256()
+    for B, L in ((3, 37), (TRAIN_BATCH, 250)):
+        q, k, v, g = (torch.randn(B, L, 64, generator=gen).to(dev) for _ in range(4))
+        outs = (ac.packed_attention_core_forward(q, k, v, 8),
+                *ac.packed_attention_core_backward(q, k, v, g, 8))
+        for t in outs:
+            digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def phase_core_kernels(dev):
     """Phase 5: the attention-core kernels against their plain versions."""
     import torch.nn.functional as F
@@ -545,9 +586,10 @@ def phase_core_kernels(dev):
 
     gen = torch.Generator().manual_seed(SEED)
     result = {}
+    log(f"core kernels f32 digest at (3, 37) and ({TRAIN_BATCH}, 250): {core_f32_digest(dev)}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for B, L in ((3, 37), (TRAIN_BATCH, 250)):
+        for B, L in ((TRAIN_BATCH if L == 250 else 3, L) for L in CORE_LENGTHS):
             q, k, v, g = (torch.randn(B, L, 64, generator=gen).to(dev, dtype) for _ in range(4))
             out = ac.packed_attention_core_forward(q, k, v, 8)
             grads = ac.packed_attention_core_backward(q, k, v, g, 8)
@@ -594,6 +636,7 @@ def phase_core_kernels(dev):
                 result[dtype] = dict(times, fwd_err=f_err, bwd_err=b_err)
                 msg += "; ms " + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
             log(msg)
+            del ref, refs
         x = underflow_input(gen).to(dev, dtype)
         out = ac.packed_attention_core_forward(x, x, x, 8)
         grads = ac.packed_attention_core_backward(x, x, x, torch.ones_like(x), 8)
@@ -909,6 +952,11 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false",
               file=sys.stderr)
         return 3
+    if len(sys.argv) == 3 and sys.argv[1] == "--core-f32-digest":
+        # the port as it is in another tree (its kernels build there), this script's inputs
+        sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
+        print(core_f32_digest(torch.device("cuda")))
+        return 0
     sys.path.insert(0, str(ROOT))
     from seq2squiggle_tpu_torch.device import resolve_device
     from seq2squiggle_tpu_torch.models import fft_model

@@ -56,9 +56,11 @@ class _SharedParams(click.Command):
 def main():
     """seq2squiggle-tpu on PyTorch/CUDA: nanopore signal simulation on a GPU.
 
-    The port of the JAX package's `predict` and `train` commands. On the port,
-    --wire-format auto means raw int16 rows (the packed formats are not
-    ported yet); POD5 output, --num-shards and --trace-dir are not ported.
+    The port of the JAX package's `predict` and `train` commands. `predict`
+    writes BLOW5, SLOW5 or POD5. On the port --wire-format auto means raw
+    int16 rows (the packed formats are not ported yet, and a packed value is
+    an error); --num-shards above 1 and --trace-dir are not ported yet and
+    are errors too.
     """
 
 
@@ -129,16 +131,12 @@ def advanced_options(f):
                      type=click.Choice(["auto", "ulp", "event", "8", "12",
                                         "raw"]),
                      show_default=True, hidden=True,
-                     help="Device->host wire format: auto starts at the "
-                     "ULP tier (bf16 event levels + 2-bit ULP deltas; "
-                     "amplitude noise is regenerated host-side from the "
-                     "same per-chunk keys - deterministic, bit-identical "
-                     "to raw for noise-free runs, within 1 ADC count "
-                     "otherwise) and downgrades ulp -> event -> 8 -> "
-                     "12-bit -> raw int16 on exception overflow; a fixed "
-                     "value pins the starting tier ('8' is the narrowest "
-                     "unconditionally bit-lossless one, 'raw' disables "
-                     "packing)."),
+                     help="Device->host wire format. On the port auto and "
+                     "raw both ship raw int16 rows; the packed tiers (ulp, "
+                     "event, 8, 12) are not ported yet and are an error, so "
+                     "auto does not start at the ULP tier and steps down "
+                     "nowhere, as it does in the JAX package. The records "
+                     "written are the same either way."),
         click.option("--slow5-press", default="zstd",
                      type=click.Choice(["zstd", "zlib", "none"]),
                      show_default=True,

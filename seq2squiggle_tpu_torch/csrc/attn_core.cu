@@ -8,7 +8,7 @@
 //             shift ‖q_t‖·max_s‖k_s‖/√d_k; e = exp(..) rounded to the compute
 //             dtype, num and den summed in f32 from it, ctx = num/den.
 //   backward  nothing is saved but q, k, v: e and den are recomputed with the
-//             forward's own code (attn_common.cuh), then
+//             forward's own code, then
 //               ĝ  = cast(g/den)            g_a = ĝ·vᵀ (f32)
 //               r  = (Σ_d ĝ·num)/den        dS  = cast(e·((g_a − r)/√d_k))
 //               gq = dS·k    gk = dSᵀ·q    gv = eᵀ·ĝ   (f32 sums, cast once)
@@ -16,24 +16,64 @@
 //
 // Bound: operations, not bytes. A call at B = 512, L = 250 moves 4 (forward)
 // or 7 (backward) tensors of 16 MB in bf16, microseconds at 3.35 TB/s,
-// against 16 (forward) to ~100 (backward) f32 FMAs and one to three expf per
-// (query, key) pair of 2.6e8 pairs. The d_k = 8 products are too thin for
-// the tensor cores to pay without repacking, so this first version runs them
-// on the CUDA cores. Design: one thread block per (batch row, head); the
-// head's q, k, v slices (L x 8) live in shared memory, so device memory is
-// read once; scores are recomputed and never stored. gq is a sum over keys
-// and needs no reduction: one thread per query. gk and gv are sums over
-// queries: instead of reducing across the query threads (atomics, or a tree
-// in shared memory), a second sweep gives one thread per KEY, which walks all
-// queries in order with the per-query shift, r and ĝ that the first sweep
-// left in shared memory. That costs a third evaluation of exp per pair and
-// buys a fixed summation order: the gradients are bit-equal from run to run.
-// Ragged L needs no padding: every loop is bounded by L.
+// against 2.6e8 (query, key) pairs, each with one exp forward and three
+// backward. Both types: one thread block per (batch row, head); the head's
+// q, k, v slices (L x 8) live in shared memory, so device memory is read
+// once; scores are recomputed and never stored.
+//
+// bf16 runs on the tensor cores with `mma.sync` (kernels *_mma_kernel below).
+// A head's row is 8 bf16 = 16 bytes = one `ldmatrix` row, so the slices lie in
+// shared memory as they come, zero rows padding L to a multiple of 16, and
+// every operand loads with one `ldmatrix` (plain, or .trans where the product
+// runs over the rows). A warp owns 16 queries and walks the keys 16 at a time:
+//   S  = Q·Kᵀ      2 x m16n8k8   (depth d_k = 8, no zero padding of the depth)
+//   e  on the accumulator fragment: one FFMA (scale and shift, log2(e) folded
+//      in), ex2.approx, round to bf16 in pairs, keys >= L zeroed; two 16 x 8
+//      tiles of e packed to bf16 pairs ARE the A operand of m16n8k16
+//   num = E·V      m16n8k16 (V through ldmatrix.trans)
+//   den = E·1      m16n8k16 against a tile of ones (row sums of the rounded e)
+// The backward's first sweep repeats this (`exp_block_rows`, the forward's own
+// code, so e is the forward's bit for bit), forms ĝ and r per query, then
+// walks the keys again: g_a = Ĝ·Vᵀ (m16n8k8), dS on the fragment, gq = dS·K
+// (m16n8k16). ĝ, the shift and r go to shared memory. Its second sweep gives
+// each warp 16 KEYS and walks the queries in index order: Sᵀ = K·Qᵀ and
+// g_aᵀ = V·Ĝᵀ (m16n8k8, roles swapped), e and dS recomputed with the stored
+// per-query shift and r (fragment columns now), gk = dSᵀ·Q and gv = Eᵀ·Ĝ
+// (m16n8k16 over the queries). That third exp per pair buys a fixed summation
+// order without atomics: gradients are bit-equal from run to run. What holds
+// the kernels is the special-function unit (16 exps a clock per SM: 0.064 ms
+// forward, 0.193 backward at the train shape and 1980 MHz).
+// Why mma.sync and not wgmma/TMA: wgmma wants a depth of 16 bf16 (half of it
+// would be zeros for S and g_a), 64-row tiles and swizzled shared-memory
+// operands, and its asynchronous pipeline pays where tiles stream from device
+// memory; here a head's q, k, v (3 x 250 x 16 bytes) sit in shared memory
+// after one load and the exp unit, not the tensor cores, is the limit.
+// Measured at (512, 250, 64) on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/profile_torch_attn_core.py, launches back to back): forward
+// 0.105 ms, backward 0.347 ms, where the same design on the CUDA cores (one
+// thread per query, as f32 below) took 0.60 and 2.07 ms and
+// F.scaled_dot_product_attention takes 0.22 and 0.65; with libm's expf in
+// place of ex2.approx 0.173 and 0.552 ms. PERF.md (section 6, B4) has the rest.
+//
+// f32 has no tensor-core form with TF32 off and keeps the CUDA-core kernels
+// (attn_core_fwd_kernel, attn_core_bwd_kernel): one thread per query, each
+// walking all L keys; gq is a sum over keys and needs no reduction; for gk
+// and gv a second sweep gives one thread per KEY, which walks all queries in
+// order with the per-query shift, r and ĝ that the first sweep left in
+// shared memory. Ragged L needs no padding there: every loop is bounded by L.
+//
+// Shared memory per thread block (ops/attn_core.py::shared_memory_bytes is
+// the Python twin of fwd_smem_bytes / bwd_smem_bytes below, checked by the
+// wrapper before a launch): bf16 48 (forward) or 72 (backward) bytes per row
+// of L rounded up to 16; f32 64 or 136 bytes per row of L.
 //
 // C interface (loaded with ctypes by ops/_build.py): each entry point returns
 // cudaGetLastError() after its launch.
 
 #include "attn_common.cuh"
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -157,29 +197,390 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16 on the tensor cores ------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Two choices made by measurement (scripts/profile_torch_attn_core.py builds
+// this file with the other values and times them in turns; PERF.md has the
+// numbers): the exp as ex2.approx on base-2 exponents (1: libm's expf on
+// natural ones, the same in the forward and both sweeps of the backward), and
+// the threads of a thread block of the tensor-core kernels.
+#ifndef S2S_ATTN_CORE_EXPF
+#define S2S_ATTN_CORE_EXPF 0
+#endif
+#ifndef S2S_ATTN_CORE_MMA_THREADS
+#define S2S_ATTN_CORE_MMA_THREADS 256
+#endif
+
+constexpr int TILE = 16;                  // queries (or keys) a warp owns; keys per step
+constexpr int MMA_THREADS = S2S_ATTN_CORE_MMA_THREADS;
+constexpr int WARPS = MMA_THREADS / 32;
+// exponents are kept in units of 1/EXP_UNIT: base 2 for ex2.approx
+constexpr float EXP_UNIT = S2S_ATTN_CORE_EXPF ? 1.f : 1.4426950408889634f;
+constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 ones
+
+__host__ __device__ inline int pad_tile(int L) { return (L + TILE - 1) / TILE * TILE; }
+
+// D += A·B, A 16 x 8 (row), B 8 x 8 (col), bf16 operands, f32 sums. Lane l
+// holds, with g = l / 4 and c = 2·(l % 4): A rows g (a[0]) and g + 8 (a[1]),
+// columns c, c + 1; B rows c, c + 1 of column g; D rows g (d[0], d[1]) and
+// g + 8 (d[2], d[3]), columns c, c + 1.
+__device__ __forceinline__ void mma_k8(float d[4], const uint32_t a[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// D += A·B, A 16 x 16, B 16 x 8: a[0], a[1] as above for columns 0..7, a[2],
+// a[3] the same rows for columns 8..15; b0 rows c, c + 1 and b1 rows c + 8,
+// c + 9 of column g.
+__device__ __forceinline__ void mma_k16(float d[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Sixteen rows of a head's slice in shared memory (16 bytes each) as two 8 x 8
+// fragments: r0 from rows row0..row0+7, r1 from the next eight. Plain: lane l
+// gets columns c, c + 1 of row g (the B operand of a product over the 8
+// channels, or the rows' own values). Transposed: rows c, c + 1 of column g
+// (the B operand of a product over the 16 rows).
+__device__ __forceinline__ void load_rows(uint32_t& r0, uint32_t& r1, const bf16* slice,
+                                          int row0, int lane) {
+  const uint32_t addr =
+      (uint32_t)__cvta_generic_to_shared(slice + (row0 + (lane & 15)) * DK);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+__device__ __forceinline__ void load_rows_t(uint32_t& r0, uint32_t& r1, const bf16* slice,
+                                            int row0, int lane) {
+  const uint32_t addr =
+      (uint32_t)__cvta_generic_to_shared(slice + (row0 + (lane & 15)) * DK);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+
+// The A operand of m16n8k8 for rows row0..row0+15 of a slice.
+__device__ __forceinline__ void load_a(uint32_t a[2], const bf16* slice, int row0, int lane) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(slice) + row0 * (DK / 2) + lane;
+  a[0] = w[0];
+  a[1] = w[8 * (DK / 2)];
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float lo_f(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float hi_f(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+#if S2S_ATTN_CORE_EXPF
+  return expf(x);
+#else
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+#endif
+}
+
+// Two neighbouring values of e = exp(s/√d_k − shift), rounded to bf16 and
+// packed: 2^(s·scale2 − shift2) with scale2 = log2(e)/√d_k and shift2 =
+// log2(e)·shift. The one place the kernels evaluate the exp: forward and both
+// sweeps of the backward go through it.
+__device__ __forceinline__ uint32_t exp_pair(float s0, float s1, float scale2, float shift2_0,
+                                             float shift2_1) {
+  return pack2(ex2(fmaf(s0, scale2, -shift2_0)), ex2(fmaf(s1, scale2, -shift2_1)));
+}
+
+// log2(e)·(the Cauchy–Schwarz shift) of the row whose channels c, c + 1 this
+// lane holds in `pair` (the quad holds the row's eight).
+__device__ __forceinline__ float row_shift2(uint32_t pair, float knorm, float inv_temp) {
+  const float lo = lo_f(pair), hi = hi_f(pair);
+  const float n2 = quad_sum(fmaf(hi, hi, __fmul_rn(lo, lo)));
+  return __fmul_rn(__fmul_rn(__fmul_rn(sqrtf(n2), knorm), inv_temp), EXP_UNIT);
+}
+
+// e for the 16 queries of A operand `qa` against keys s0..s0+15, as the A
+// operand of m16n8k16 (queries x keys); keys >= L give 0. sh0, sh1: shift2 of
+// query rows g and g + 8.
+__device__ __forceinline__ void exp_block_rows(uint32_t e[4], const uint32_t qa[2],
+                                               const bf16* sK, int s0, int L, int lane,
+                                               float scale2, float sh0, float sh1) {
+  uint32_t kb0, kb1;
+  load_rows(kb0, kb1, sK, s0, lane);
+  float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_k8(c0, qa, kb0);
+  mma_k8(c1, qa, kb1);
+  e[0] = exp_pair(c0[0], c0[1], scale2, sh0, sh0);
+  e[1] = exp_pair(c0[2], c0[3], scale2, sh1, sh1);
+  e[2] = exp_pair(c1[0], c1[1], scale2, sh0, sh0);
+  e[3] = exp_pair(c1[2], c1[3], scale2, sh1, sh1);
+  if (s0 + TILE > L) {  // the ragged last step: a zero key would give exp(−shift)
+    const int key = s0 + 2 * (lane & 3);
+    const uint32_t m0 = (key < L ? 0x0000ffffu : 0u) | (key + 1 < L ? 0xffff0000u : 0u);
+    const uint32_t m1 = (key + 8 < L ? 0x0000ffffu : 0u) | (key + 9 < L ? 0xffff0000u : 0u);
+    e[0] &= m0; e[1] &= m0; e[2] &= m1; e[3] &= m1;
+  }
+}
+
+// Two neighbouring values of dS = cast(e·((g_a − r)/√d_k)), packed.
+__device__ __forceinline__ uint32_t ds_pair(uint32_t e, float ga0, float ga1, float r0,
+                                            float r1, float inv_temp) {
+  return pack2(__fmul_rn(lo_f(e), __fmul_rn(__fsub_rn(ga0, r0), inv_temp)),
+               __fmul_rn(hi_f(e), __fmul_rn(__fsub_rn(ga1, r1), inv_temp)));
+}
+
+// num = Σ e·v and den = Σ e (not yet clamped) of the 16 queries of `qa` over
+// all keys: rows g in [0], [1] and g + 8 in [2], [3]; den the same in both
+// columns.
+__device__ __forceinline__ void attend_tile(float num[4], float den[4], const uint32_t qa[2],
+                                            const bf16* sK, const bf16* sV, int L, int Lp,
+                                            int lane, float scale2, float sh0, float sh1) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) num[i] = den[i] = 0.f;
+  for (int s0 = 0; s0 < Lp; s0 += TILE) {
+    uint32_t e[4], vt0, vt1;
+    exp_block_rows(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
+    load_rows_t(vt0, vt1, sV, s0, lane);
+    mma_k16(num, e, vt0, vt1);
+    mma_k16(den, e, ONES2, ONES2);
+  }
+}
+
+// A head's slice (L rows of 8, D apart in device memory) into shared memory,
+// rows L..Lp-1 zero.
+__device__ __forceinline__ void load_head_padded(bf16* dst, const bf16* src, int L, int Lp,
+                                                 int tid) {
+  for (int t = tid; t < Lp; t += MMA_THREADS) {
+    if (t < L) copy8(dst + t * DK, src + (size_t)t * D);
+    else *reinterpret_cast<uint4*>(dst + t * DK) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Rows g and g + 8 of an accumulator fragment to rows row0 + g, row0 + g + 8
+// of a (L, 64) tensor's head slice, rounded once (or as they are for float).
+template <typename TO>
+__device__ __forceinline__ void store_tile(TO* dst, const float acc[4], int row0, int L,
+                                           int lane) {
+  const int r = row0 + (lane >> 2), c = 2 * (lane & 3);
+  if (r < L) store2(dst + (size_t)r * D + c, acc[0], acc[1]);
+  if (r + 8 < L) store2(dst + (size_t)(r + 8) * D + c, acc[2], acc[3]);
+}
+
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_core_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out, const int L,
+                         const float inv_temp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Lp = pad_tile(L);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + (size_t)Lp * DK;
+  bf16* sV = sK + (size_t)Lp * DK;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const size_t base = (size_t)b * L * D + h * DK;
+  load_head_padded(sQ, q + base, L, Lp, tid);
+  load_head_padded(sK, k + base, L, Lp, tid);
+  load_head_padded(sV, v + base, L, Lp, tid);
+  __syncthreads();
+  const float knorm = warp_max_knorm<bf16, DK>(sK, L, lane);
+  const float scale2 = __fmul_rn(inv_temp, EXP_UNIT);
+
+  for (int q0 = warp * TILE; q0 < Lp; q0 += WARPS * TILE) {
+    uint32_t qa[2];
+    load_a(qa, sQ, q0, lane);
+    const float sh0 = row_shift2(qa[0], knorm, inv_temp);
+    const float sh1 = row_shift2(qa[1], knorm, inv_temp);
+    float num[4], den[4];
+    attend_tile(num, den, qa, sK, sV, L, Lp, lane, scale2, sh0, sh1);
+    const float d0 = fmaxf(den[0], DEN_MIN), d1 = fmaxf(den[2], DEN_MIN);
+    const float ctx[4] = {__fdiv_rn(num[0], d0), __fdiv_rn(num[1], d0), __fdiv_rn(num[2], d1),
+                          __fdiv_rn(num[3], d1)};
+    store_tile(out + base, ctx, q0, L, lane);
+  }
+}
+
+// TO as in attn_core_bwd_kernel.
+template <typename TO>
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_core_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         TO* __restrict__ gq, TO* __restrict__ gk, TO* __restrict__ gv,
+                         const int L, const float inv_temp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Lp = pad_tile(L);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + (size_t)Lp * DK;
+  bf16* sV = sK + (size_t)Lp * DK;
+  bf16* sGh = sV + (size_t)Lp * DK;                  // ĝ = cast(g/den) per query
+  float* sShift = reinterpret_cast<float*>(sGh + (size_t)Lp * DK);  // log2(e)·shift
+  float* sR = sShift + Lp;                           // softmax-jacobian row dot
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = lane >> 2, col = 2 * (lane & 3);
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const size_t base = (size_t)b * L * D + h * DK;
+  load_head_padded(sQ, q + base, L, Lp, tid);
+  load_head_padded(sK, k + base, L, Lp, tid);
+  load_head_padded(sV, v + base, L, Lp, tid);
+  __syncthreads();
+  const float knorm = warp_max_knorm<bf16, DK>(sK, L, lane);
+  const float scale2 = __fmul_rn(inv_temp, EXP_UNIT);
+
+  // ---- sweep over queries: den, num, ĝ, r (kept for the key sweep), then gq.
+  for (int q0 = warp * TILE; q0 < Lp; q0 += WARPS * TILE) {
+    uint32_t qa[2];
+    load_a(qa, sQ, q0, lane);
+    const float sh0 = row_shift2(qa[0], knorm, inv_temp);
+    const float sh1 = row_shift2(qa[1], knorm, inv_temp);
+    float num[4], den[4];
+    attend_tile(num, den, qa, sK, sV, L, Lp, lane, scale2, sh0, sh1);
+    const float d0 = fmaxf(den[0], DEN_MIN), d1 = fmaxf(den[2], DEN_MIN);
+
+    // ĝ in the accumulator's layout is the A operand of g_a = Ĝ·Vᵀ as it is.
+    const int t0 = q0 + row, t1 = t0 + 8;
+    uint32_t g0 = 0u, g1 = 0u;  // rows >= L: ĝ = 0, so r = 0 and dS = 0
+    if (t0 < L) g0 = *reinterpret_cast<const uint32_t*>(g + base + (size_t)t0 * D + col);
+    if (t1 < L) g1 = *reinterpret_cast<const uint32_t*>(g + base + (size_t)t1 * D + col);
+    uint32_t gha[2];
+    gha[0] = pack2(__fdiv_rn(lo_f(g0), d0), __fdiv_rn(hi_f(g0), d0));
+    gha[1] = pack2(__fdiv_rn(lo_f(g1), d1), __fdiv_rn(hi_f(g1), d1));
+    const float r0 = __fdiv_rn(
+        quad_sum(fmaf(hi_f(gha[0]), num[1], __fmul_rn(lo_f(gha[0]), num[0]))), d0);
+    const float r1 = __fdiv_rn(
+        quad_sum(fmaf(hi_f(gha[1]), num[3], __fmul_rn(lo_f(gha[1]), num[2]))), d1);
+    uint32_t* gh_words = reinterpret_cast<uint32_t*>(sGh) + q0 * (DK / 2) + lane;
+    gh_words[0] = gha[0];
+    gh_words[8 * (DK / 2)] = gha[1];
+    if ((lane & 3) == 0) {
+      sShift[t0] = sh0; sShift[t1] = sh1;
+      sR[t0] = r0; sR[t1] = r1;
+    }
+
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < Lp; s0 += TILE) {
+      uint32_t e[4], ds[4], vb0, vb1, kt0, kt1;
+      exp_block_rows(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
+      load_rows(vb0, vb1, sV, s0, lane);
+      float ga0[4] = {0.f, 0.f, 0.f, 0.f}, ga1[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_k8(ga0, gha, vb0);
+      mma_k8(ga1, gha, vb1);
+      ds[0] = ds_pair(e[0], ga0[0], ga0[1], r0, r0, inv_temp);
+      ds[1] = ds_pair(e[1], ga0[2], ga0[3], r1, r1, inv_temp);
+      ds[2] = ds_pair(e[2], ga1[0], ga1[1], r0, r0, inv_temp);
+      ds[3] = ds_pair(e[3], ga1[2], ga1[3], r1, r1, inv_temp);
+      load_rows_t(kt0, kt1, sK, s0, lane);
+      mma_k16(acc, ds, kt0, kt1);
+    }
+    store_tile(gq + base, acc, q0, L, lane);
+  }
+  __syncthreads();
+
+  // ---- sweep over keys: gk and gv, summed over the queries in order. The
+  // fragments are keys x queries now; rows of keys >= L are computed and not
+  // stored, and a query >= L adds nothing (its q, ĝ and r are 0, its e is 1).
+  for (int s0 = warp * TILE; s0 < Lp; s0 += WARPS * TILE) {
+    uint32_t ka[2], va[2];
+    load_a(ka, sK, s0, lane);
+    load_a(va, sV, s0, lane);
+    float ak[4] = {0.f, 0.f, 0.f, 0.f}, av[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t0 = 0; t0 < Lp; t0 += TILE) {
+      uint32_t e[4], ds[4], qb0, qb1, gb0, gb1, qt0, qt1, gt0, gt1;
+      load_rows(qb0, qb1, sQ, t0, lane);
+      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_k8(c0, ka, qb0);
+      mma_k8(c1, ka, qb1);
+      const float2 shA = *reinterpret_cast<const float2*>(sShift + t0 + col);
+      const float2 shB = *reinterpret_cast<const float2*>(sShift + t0 + 8 + col);
+      e[0] = exp_pair(c0[0], c0[1], scale2, shA.x, shA.y);
+      e[1] = exp_pair(c0[2], c0[3], scale2, shA.x, shA.y);
+      e[2] = exp_pair(c1[0], c1[1], scale2, shB.x, shB.y);
+      e[3] = exp_pair(c1[2], c1[3], scale2, shB.x, shB.y);
+      load_rows(gb0, gb1, sGh, t0, lane);
+      float ga0[4] = {0.f, 0.f, 0.f, 0.f}, ga1[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_k8(ga0, va, gb0);
+      mma_k8(ga1, va, gb1);
+      const float2 rA = *reinterpret_cast<const float2*>(sR + t0 + col);
+      const float2 rB = *reinterpret_cast<const float2*>(sR + t0 + 8 + col);
+      ds[0] = ds_pair(e[0], ga0[0], ga0[1], rA.x, rA.y, inv_temp);
+      ds[1] = ds_pair(e[1], ga0[2], ga0[3], rA.x, rA.y, inv_temp);
+      ds[2] = ds_pair(e[2], ga1[0], ga1[1], rB.x, rB.y, inv_temp);
+      ds[3] = ds_pair(e[3], ga1[2], ga1[3], rB.x, rB.y, inv_temp);
+      load_rows_t(qt0, qt1, sQ, t0, lane);
+      mma_k16(ak, ds, qt0, qt1);
+      load_rows_t(gt0, gt1, sGh, t0, lane);
+      mma_k16(av, e, gt0, gt1);
+    }
+    store_tile(gk + base, ak, s0, L, lane);
+    store_tile(gv + base, av, s0, L, lane);
+  }
+}
+
+// ---- host side -------------------------------------------------------------
+
+// Dynamic shared memory of one thread block (Python twin:
+// ops/attn_core.py::shared_memory_bytes).
+template <typename T> size_t fwd_smem_bytes(int L) { return 2 * (size_t)L * DK * sizeof(T); }
+template <> size_t fwd_smem_bytes<bf16>(int L) {
+  return 3 * (size_t)pad_tile(L) * DK * sizeof(bf16);
+}
+template <typename T> size_t bwd_smem_bytes(int L) {
+  return 4 * (size_t)L * DK * sizeof(T) + 2 * (size_t)L * sizeof(float);
+}
+template <> size_t bwd_smem_bytes<bf16>(int L) {
+  return 4 * (size_t)pad_tile(L) * DK * sizeof(bf16) + 2 * (size_t)pad_tile(L) * sizeof(float);
+}
+
+template <typename K, typename... Args>
+int launch(K kernel, int threads, size_t smem, int B, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_shared_memory(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B * H, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, int B, int L,
                float inv_temp, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)L * DK * sizeof(T);
-  cudaError_t err = allow_shared_memory(attn_core_fwd_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_core_fwd_kernel<T><<<B * H, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), L, inv_temp);
-  return (int)cudaGetLastError();
+  const auto run = [&](auto kernel, int threads) {
+    return launch(kernel, threads, fwd_smem_bytes<T>(L), B, stream, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), L,
+                  inv_temp);
+  };
+  if constexpr (std::is_same<T, bf16>::value) return run(attn_core_fwd_mma_kernel, MMA_THREADS);
+  else return run(attn_core_fwd_kernel<T>, THREADS);
 }
 
 template <typename T, typename TO>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* gq,
                void* gk, void* gv, int B, int L, float inv_temp, cudaStream_t stream) {
-  const size_t smem = 4 * (size_t)L * DK * sizeof(T) + 2 * (size_t)L * sizeof(float);
-  cudaError_t err = allow_shared_memory(attn_core_bwd_kernel<T, TO>, smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_core_bwd_kernel<T, TO><<<B * H, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<TO*>(gq), static_cast<TO*>(gk),
-      static_cast<TO*>(gv), L, inv_temp);
-  return (int)cudaGetLastError();
+  const auto run = [&](auto kernel, int threads) {
+    return launch(kernel, threads, bwd_smem_bytes<T>(L), B, stream, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
+                  static_cast<TO*>(gq), static_cast<TO*>(gk), static_cast<TO*>(gv), L, inv_temp);
+  };
+  if constexpr (std::is_same<T, bf16>::value) return run(attn_core_bwd_mma_kernel<TO>, MMA_THREADS);
+  else return run(attn_core_bwd_kernel<T, TO>, THREADS);
 }
 
 }  // namespace

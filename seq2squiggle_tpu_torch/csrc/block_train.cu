@@ -325,6 +325,8 @@ __device__ __forceinline__ void row_forward(const Params<T>& w, const T* ctx_row
 // Shared memory of the two per-batch-row kernels: q (then ctx), k, v, then
 // per warp a 64-wide and a 256-wide scratch row (and a second 64-wide one for
 // the backward), then floats: max‖k‖ per head and the block's vector sums.
+// ops/block_train.py::shared_memory_bytes is the Python twin, checked by the
+// wrapper before a launch: change both together.
 template <typename T>
 size_t row_kernel_smem(int L, bool backward) {
   return (3 * (size_t)L * D + WARPS * (size_t)(D + DFF + (backward ? D : 0))) * sizeof(T) +

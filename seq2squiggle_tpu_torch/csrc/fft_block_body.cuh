@@ -82,7 +82,9 @@ __device__ __forceinline__ BlockSmem<T> carve_smem(unsigned char* smem, int L) {
 }
 
 // Bytes of BlockSmem for sequence length L, plus `extra_rows` more L x 64
-// compute-dtype buffers after it.
+// compute-dtype buffers after it. ops/fft_block.py::shared_memory_bytes is the
+// Python twin (extra_rows = 0), checked by the wrapper before a launch: change
+// both together.
 template <typename T>
 inline size_t block_smem_bytes(int L, int extra_rows = 0) {
   return (3 + (size_t)extra_rows) * L * D * sizeof(T) + (size_t)WARPS * DFF * sizeof(T) +

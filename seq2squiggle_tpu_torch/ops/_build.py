@@ -37,6 +37,9 @@ BUILD_DIR = _build_dir()
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# Dynamic shared memory one thread block can opt into on an H100 (227 KB).
+SHARED_MEMORY_MAX = 232_448
+
 _LOCK = threading.Lock()
 _LIB = None
 build_seconds = None  # wall time of this process's build, for chip_smoke.py
@@ -139,6 +142,28 @@ def load() -> ctypes.CDLL:
             _compile(out)
         _LIB = _bind(ctypes.CDLL(str(out)))
         return _LIB
+
+
+def check_shared_memory(kernel: str, L: int, dtype, need) -> None:
+    """Refuse, before any launch, a sequence whose per-block working set does
+    not fit in shared memory. `need(L)` is the kernel's dynamic shared memory
+    in bytes for length L (the Python twin of the formula in its .cu file; it
+    grows with L). Raises a ValueError naming L, the dtype, the bytes and the
+    largest L that fits. It touches no device: on the CPU it checks as well."""
+    n_bytes = need(L)
+    if n_bytes <= SHARED_MEMORY_MAX:
+        return
+    fits, too_long = 0, L
+    while too_long - fits > 1:
+        mid = (fits + too_long) // 2
+        if need(mid) <= SHARED_MEMORY_MAX:
+            fits = mid
+        else:
+            too_long = mid
+    raise ValueError(
+        f"{kernel}: a sequence of L = {L} in {str(dtype).replace('torch.', '')} needs "
+        f"{n_bytes} bytes of shared memory per thread block, more than the "
+        f"{SHARED_MEMORY_MAX} an H100 gives one; the largest L that fits is {fits}")
 
 
 def error_string(code: int) -> str:

@@ -15,13 +15,18 @@ training goes through the same hand-derived backward the card runs.
 
 What bounds the kernels on the H100: operations. A call at (512, 250, 64) in
 bf16 moves 4 tensors of 16 MB forward and 7 backward (microseconds at
-3.35 TB/s) but evaluates 2.6e8 (query, key) pairs, each one exp and 16 FMAs
-forward and three exps and about 100 FMAs backward, on the CUDA cores: the
-d_k = 8 products are too thin for tensor cores without repacking, which is
-left to a later change. The design keeps each head's q, k, v in shared
-memory, recomputes scores instead of storing them, and sums gk and gv per
-key over the queries in order (no atomics), so gradients are bit-equal from
-run to run.
+3.35 TB/s) but evaluates 2.6e8 (query, key) pairs, each with one exp forward
+and three backward. In bf16 the products run on the tensor cores: d_k = 8 is
+the depth of `mma.sync` m16n8k8 (scores, g_a), and the products over keys or
+queries take m16n8k16, whose A operand is the accumulator fragment of e or dS
+packed to bf16 pairs in registers; what is left per pair is the exp, so the
+special-function unit is the limit (times: PERF.md section 6). f32 has no
+tensor-core form with TF32 off and stays on the CUDA cores. Both keep each
+head's q, k, v in shared memory, recompute scores instead of storing them,
+and sum gk and gv per key over the queries in order (no atomics), so
+gradients are bit-equal from run to run. A sequence whose head slices do not
+fit in shared memory is refused with a ValueError before any launch
+(`shared_memory_bytes`).
 
 Numerics (the TPU kernels'): shift = ‖q_t‖·max_s‖k_s‖/√d_k per head
 (Cauchy–Schwarz, no row max); e = exp(q·k/√d_k − shift) in f32, rounded to
@@ -125,6 +130,24 @@ def _check(n_head: int, *tensors: torch.Tensor) -> None:
                              f"{tuple(q.shape)} {q.dtype} on {q.device}")
 
 
+def shared_memory_bytes(L: int, dtype: torch.dtype, backward: bool) -> int:
+    """Dynamic shared memory of one thread block: the Python twin of
+    fwd_smem_bytes / bwd_smem_bytes in csrc/attn_core.cu. bf16 keeps q, k, v
+    (and ĝ) padded to 16-row tiles plus, backward, a shift and an r per row;
+    f32 keeps k, v (q, k, v, ĝ backward) unpadded."""
+    if dtype == torch.bfloat16:
+        rows = -(-L // 16) * 16
+        return rows * (4 * 16 + 2 * 4 if backward else 3 * 16)
+    return L * (4 * 32 + 2 * 4 if backward else 2 * 32)
+
+
+def check_length(L: int, dtype: torch.dtype, backward: bool) -> None:
+    """Raise a ValueError if a head's slices at length L do not fit."""
+    _build.check_shared_memory(
+        f"packed_attention_core {'backward' if backward else 'forward'}", L, dtype,
+        lambda n: shared_memory_bytes(n, dtype, backward))
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -133,6 +156,7 @@ def _launch_fwd(q, k, v, n_head: int) -> torch.Tensor:
     global launches_fwd
     _check(n_head, q, k, v)
     B, L, D = q.shape
+    check_length(L, q.dtype, backward=False)
     out = torch.empty_like(q)
     if B == 0 or L == 0:
         return out
@@ -150,6 +174,7 @@ def _launch_bwd(q, k, v, g, n_head: int):
     global launches_bwd
     _check(n_head, q, k, v, g)
     B, L, D = q.shape
+    check_length(L, q.dtype, backward=True)
     gq, gk, gv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     if B == 0 or L == 0:
         return gq, gk, gv

@@ -34,11 +34,14 @@ block per batch row, q, k, v in shared memory, scores never stored. The
 backward's live set does not fit in shared memory, so it is six launches
 over a device-memory workspace: weights rounded and transposed; recompute and
 walk back to the gradient of ctx, one row per warp; the attention-core
-backward per (row, head); gx and the projections' operands; the six Aᵀ·G
+backward per (row, head), in bf16 on the tensor cores (csrc/attn_core.cu);
+gx and the projections' operands; the six Aᵀ·G
 weight-gradient products split over a fixed 64 ranges of positions; and a
 pass that adds the partial sums in index order. No atomics anywhere: every
 sum has a fixed order that does not depend on the card, so the gradients are
-bit-equal from run to run.
+bit-equal from run to run. A sequence too long for the per-batch-row kernels'
+shared memory (f32: L > 289 forward, L > 283 backward) is refused with a
+ValueError before any launch (`shared_memory_bytes`).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from .. import prng
 from . import _build
 from .attn_core import (_heads, _mm, _packed, _softmax_terms,
                         packed_attention_backward_terms)
+from .attn_core import shared_memory_bytes as attn_core_smem
 from .fft_block import D_FF, D_MODEL, N_HEAD, WEIGHT_FIELDS, _get
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -214,6 +218,26 @@ def _check(x, weights, s_a, s_f, n_head: int, g=None) -> None:
                              f"masters); got {tuple(w.shape)} {w.dtype} on {w.device}")
 
 
+def shared_memory_bytes(L: int, dtype: torch.dtype, backward: bool) -> int:
+    """Dynamic shared memory of one thread block of the per-batch-row kernels:
+    the Python twin of row_kernel_smem in csrc/block_train.cu (q, k, v rows,
+    per warp a 64- and a 256-wide scratch row and, backward, a second 64-wide
+    one; then max‖k‖ per head and, backward, the 640 vector sums). The
+    backward also runs the attention-core backward, which needs less."""
+    size = torch.finfo(dtype).bits // 8
+    warps, n_row_vecs = 8, 6 * D_MODEL + D_FF
+    rows = ((3 * L * D_MODEL + warps * (D_MODEL + D_FF + (D_MODEL if backward else 0))) * size
+            + (N_HEAD + (n_row_vecs if backward else 0)) * 4)
+    return max(rows, attn_core_smem(L, dtype, True)) if backward else rows
+
+
+def check_length(L: int, dtype: torch.dtype, backward: bool) -> None:
+    """Raise a ValueError if a batch row of length L does not fit."""
+    _build.check_shared_memory(
+        f"fused_block_train {'backward' if backward else 'forward'}", L, dtype,
+        lambda n: shared_memory_bytes(n, dtype, backward))
+
+
 def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -234,6 +258,7 @@ def _launch_fwd(x, weights, s_a, s_f, n_head: int) -> torch.Tensor:
     global launches_fwd
     _check(x, weights, s_a, s_f, n_head)
     B, L, D = x.shape
+    check_length(L, x.dtype, backward=False)
     out = torch.empty_like(x)
     if B == 0 or L == 0:
         return out
@@ -266,6 +291,7 @@ def _launch_bwd(x, weights, s_a, s_f, g, n_head: int):
     global launches_bwd
     _check(x, weights, s_a, s_f, n_head, g)
     B, L, D = x.shape
+    check_length(L, x.dtype, backward=True)
     gx = torch.empty_like(x)
     n_gw = sum(w.numel() for w in weights)
     if B == 0 or L == 0:

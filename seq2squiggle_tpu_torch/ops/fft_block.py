@@ -183,11 +183,28 @@ def check_input(x: torch.Tensor, n_head: int, name: str) -> None:
                          f"got shape {tuple(x.shape)}, {n_head} heads")
 
 
+def shared_memory_bytes(L: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one thread block of the one-block kernel, the
+    pair and the profiling variants: the Python twin of block_smem_bytes in
+    csrc/fft_block_body.cuh (q, k, v rows, a 256-wide hidden row per warp,
+    max‖k‖ per head). The pair's fourth buffer is optional there (beyond its
+    room the activation is staged through the output), so it adds no ceiling."""
+    size = torch.finfo(dtype).bits // 8
+    return (3 * L * D_MODEL + 8 * D_FF) * size + N_HEAD * 4
+
+
+def check_length(L: int, dtype: torch.dtype, name: str = "fused_fft_block") -> None:
+    """Raise a ValueError if a batch row of length L does not fit."""
+    _build.check_shared_memory(name, L, dtype, lambda n: shared_memory_bytes(n, dtype))
+
+
 def launch_kernel(entry: str, x: torch.Tensor, ptrs, option: int) -> torch.Tensor:
     """Run the C entry point `entry` (s2s_fft_block's argument list) on x with
     the weight pointer array `ptrs`; `option` is its one integer knob. Raises
-    if the launch is refused. The caller counts the launch."""
+    if the sequence does not fit in shared memory or the launch is refused.
+    The caller counts the launch."""
     B, L, _ = x.shape
+    check_length(L, x.dtype, entry)
     x = x.contiguous()
     out = torch.empty_like(x)
     if B == 0:

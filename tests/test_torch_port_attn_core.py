@@ -9,6 +9,9 @@ max|ref|; gradients float32 rtol 1e-4 / atol 1e-5, bfloat16 within 8 bf16
 ULPs of max(1, max|ref|) (tests/test_pallas.py:184-230); the hand-derived
 backward against torch.autograd through the plain forward at the float32 bar,
 and against central finite differences (float32, eps 1e-2, atol 2e-3).
+L = 1, 16 and 17 sit at the edges of the bfloat16 CUDA kernels' 16-row tiles:
+the plain versions those kernels are held to are held to the Pallas kernel
+there too.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ def f32(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,L", [(3, 37), (2, 50)])
+@pytest.mark.parametrize("B,L", [(3, 37), (2, 50), (3, 1), (3, 16), (3, 17)])
 def test_core_forward_matches_pallas(dtype, B, L):
     jd, td = DTYPES[dtype]
     arrs = qkvw(B, L, seed=L)
@@ -61,7 +64,7 @@ def test_core_forward_matches_pallas(dtype, B, L):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,L", [(3, 37), (2, 50)])
+@pytest.mark.parametrize("B,L", [(3, 37), (2, 50), (3, 1), (3, 16), (3, 17)])
 def test_core_backward_matches_pallas_grad(dtype, B, L):
     jd, td = DTYPES[dtype]
     arrs = qkvw(B, L, seed=100 + L)
@@ -168,15 +171,30 @@ def test_cuda_wrapper_refuses_what_the_kernels_do_not_take():
 
 @pytest.mark.gpu
 def test_core_kernels_match_plain_on_the_card():
-    """The CUDA kernels against the plain versions (chip_smoke.py phase 5
-    runs the same comparison at the training shapes)."""
+    """The CUDA kernels against the plain versions, float32 and bfloat16, at
+    the lengths of chip_smoke.py phase 5 (which runs the same comparison, and
+    L = 250 at the training batch): the edges of the 16-row tiles, a ragged
+    last tile in both axes, more than 16 tiles. Bars as chip_smoke.py's; the
+    backward bit-equal from run to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
-    q, k, v, w = (t.to(dev) for t in to_torch(qkvw(3, 37, seed=1), torch.float32))
-    torch.testing.assert_close(tcore.packed_attention_core_forward(q, k, v, H),
-                               tcore.packed_attention_core_reference(q, k, v, H),
-                               rtol=1e-5, atol=1e-5)
-    for a, b in zip(tcore.packed_attention_core_backward(q, k, v, w, H),
-                    tcore.packed_attention_core_backward_reference(q, k, v, w, H)):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for td in (torch.float32, torch.bfloat16):
+        for L in (1, 15, 16, 17, 37, 250, 256, 283):
+            q, k, v, w = (t.to(dev) for t in to_torch(qkvw(3, L, seed=L), td))
+            out = tcore.packed_attention_core_forward(q, k, v, H)
+            grads = tcore.packed_attention_core_backward(q, k, v, w, H)
+            again = tcore.packed_attention_core_backward(q, k, v, w, H)
+            ref = tcore.packed_attention_core_reference(q, k, v, H)
+            refs = tcore.packed_attention_core_backward_reference(q, k, v, w, H)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again)), (td, L)
+            if td == torch.float32:
+                torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+                for a, b in zip(grads, refs):
+                    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+            else:
+                err = (out.float() - ref.float()).abs().max().item()
+                assert err <= 4 * 2.0 ** -8 * ref.float().abs().max().item(), (L, err)
+                for a, b in zip(grads, refs):
+                    err = (a.float() - b.float()).abs().max().item()
+                    assert err <= 8 * 2.0 ** -8 * max(1.0, b.float().abs().max().item()), (L, err)
