@@ -45,20 +45,24 @@ Phases (any failure raises and the script exits non-zero):
      checkpoint files present, model.npz validating at the logged loss and
      running one predict_step;
   8. whole-block training kernels vs plain: forward and backward at
-     (512, 250, 64) and a ragged (3, 37, 64), 8 heads, with dropout scales
-     (rate 0.2) and without, weights from seed 7. f32: forward rtol 1e-4 /
-     atol 1e-5, gx rtol 1e-3 / atol 1e-5·max(1, max|plain|), each weight
-     gradient rtol 2e-3 / atol 1e-4·max(1, max|plain|). bf16: forward within
-     4 bf16 ULPs of max(1, max|plain|), gx within 8, each weight gradient
-     within 2e-2·max(1, max|plain|). At the training shape a pre-activation
-     within rounding of 0 can flip its relu mask between two summation
-     orders, which moves that row's gradients by a whole term: there gx may
-     miss its bar on <= 1e-4 of its entries and an f32 weight gradient on
-     <= 2 % of a leaf, every entry staying within 0.25·max(1, max|plain|)
-     (gx) and 1e-2·max(1, max|plain|) (weights); at the ragged shape every
-     entry meets the bar. The underflow input finite in both directions; the
-     backward run twice bit-equal; median times of each kernel and its plain
-     version in both dtypes;
+     (512, 250, 64) and, at batch 3, every other length of BLOCK_LENGTHS (the
+     edges of the bf16 kernels' 16-row slabs), then at batch 64 the longest L
+     the backward takes in each dtype (both directions) and the longest the
+     forward takes (forward only); 8 heads, with dropout scales (rate 0.2)
+     and without, weights from seed 7. f32: forward rtol 1e-4 / atol 1e-5, gx
+     rtol 1e-3 / atol 1e-5·max(1, max|plain|), each weight gradient rtol 2e-3
+     / atol 1e-4·max(1, max|plain|). bf16: forward within 4 bf16 ULPs of
+     max(1, max|plain|), gx within 8, each weight gradient within
+     2e-2·max(1, max|plain|). Above 1000 positions a pre-activation within
+     rounding of 0 can flip its relu mask between two summation orders, which
+     moves that row's gradients by a whole term: there gx may miss its bar on
+     <= 1e-4 of its entries and an f32 weight gradient on <= 2 % of a leaf,
+     every entry staying within 0.25·max(1, max|plain|) (gx) and
+     1e-2·max(1, max|plain|) (weights); at the short shapes every entry meets
+     the bar. The underflow input finite in both directions; the backward run
+     twice bit-equal; median times of each kernel and its plain version in
+     both dtypes, of the backward's six launches one by one, and the peak of
+     allocated device memory around one backward call;
   9. one train step at `pallas_train: block`: as phase 6, with block launches
      exactly (2, 2) and no core launch; then bf16 on the card, `auto` (which
      must pick the block rung) against `pallas_train: false`;
@@ -124,6 +128,7 @@ CORE_STEPS = 10  # the one epoch of the `pallas_train: core` path
 VALID_STEPS = 2
 SEED = 7
 CORE_LENGTHS = (1, 15, 16, 17, 37, 250, 256, 283)  # phase 5; 250 at the train batch
+BLOCK_LENGTHS = (1, 15, 16, 17, 37, 250)  # phase 8; 250 at the train batch
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type.
 PEAK_BYTES = 3.35e12
@@ -654,78 +659,116 @@ def phase_block_kernels(dev):
     from seq2squiggle_tpu_torch.models import fft_model
     from seq2squiggle_tpu_torch.ops import block_train as bt
 
+    from seq2squiggle_tpu_torch.ops import _build
+
     block = fft_model.init_params(load_config(None), prng.key(SEED))["decoder"]["blocks"][0]
     weights = [w.to(dev).contiguous() for w in bt.block_weights(block)]
     gen = torch.Generator().manual_seed(SEED)
     result = {}
+    ulp = 2.0 ** -8
+
+    def ceiling(dtype, backward):
+        fits = 250
+        while bt.shared_memory_bytes(fits + 1, dtype, backward) <= _build.SHARED_MEMORY_MAX:
+            fits += 1
+        return fits
+
+    def hold(dtype, B, L, scales, x, g, backward):
+        """One shape, with or without dropout scales, against the plain versions."""
+        name = str(dtype)[6:]
+        what = (f"block kernels {name} {B}x{L} dropout "
+                f"{'on' if scales[0] is not None else 'off'}")
+        out = bt.fused_block_train_forward(x, weights, *scales, 8)
+        torch.cuda.synchronize()
+        ref = bt.fused_block_train_reference(x, weights, *scales, 8)
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+        f_err = (out.float() - ref.float()).abs().max().item()
+        f_max = max(1.0, ref.float().abs().max().item())
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+        else:
+            check(f_err <= 4 * ulp * f_max, f"{what}: forward err {f_err}")
+        if not backward:
+            log(f"{what}: forward max|err| {f_err:.3g} (forward only: past the backward's "
+                "ceiling)")
+            return f_err, None
+        gx, gws = bt.fused_block_train_backward(x, weights, *scales, g, 8)
+        gx2, gws2 = bt.fused_block_train_backward(x, weights, *scales, g, 8)
+        torch.cuda.synchronize()
+        rx, rws = bt.fused_block_train_backward_reference(x, weights, *scales, g, 8)
+        check(torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in zip(gws, gws2)),
+              f"{what}: two backward runs differ")
+        x_max = max(1.0, rx.float().abs().max().item())
+        x_err = (gx.float() - rx.float()).abs().max().item()
+        # per weight gradient: error as a share of max(1, max|plain|)
+        w_errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                  for a, b in zip(gws, rws)]
+        w_err = max(w_errs)
+        worst = "/".join(bt.WEIGHT_FIELDS[w_errs.index(w_err)])
+        # A pre-activation that lands on the other side of 0 in another
+        # summation order flips its relu mask, and that row's gradients move
+        # by a whole term: a few rows in 128,000 do, none in 111. So above 1000
+        # positions a small share of entries may miss the tight bar, and every
+        # entry meets a loose one.
+        flips = B * L > 1000
+        if dtype == torch.float32:
+            x_out = outside(gx, rx, 1e-3, 1e-5 * x_max)
+            w_out = max(outside(a, b, 2e-3, 1e-4 * max(1.0, b.abs().max().item()))
+                        for a, b in zip(gws, rws))
+            check(w_out <= (2e-2 if flips else 0.0) and w_err <= 1e-2,
+                  f"{what}: weight gradients outside the tight bar on up to {w_out:.2e} "
+                  f"of a leaf, {worst} off by {w_err} of max(1, max|plain|)")
+        else:
+            x_out = outside(gx, rx, 0.0, 8 * ulp * x_max)
+            w_out = 0.0
+            check(w_err <= 2e-2, f"{what}: {worst} off by {w_err} of max(1, max|plain|)")
+        check(x_out <= (1e-4 if flips else 0.0) and x_err <= 0.25 * x_max,
+              f"{what}: gx outside its bar on {x_out:.2e} of the entries, max|err| {x_err}")
+        log(f"{what}: forward max|err| {f_err:.3g}; gx max|err| {x_err:.3g} of max|gx| "
+            f"{rx.float().abs().max().item():.3g}, outside the tight bar {x_out:.2e}; "
+            f"weight gradients max|err|/max(1, max|plain|) {w_err:.3g} ({worst}), "
+            f"outside the tight bar {w_out:.2e}; backward bit-equal twice")
+        return f_err, x_err
+
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        ulp = 2.0 ** -8
-        for B, L in ((3, 37), (TRAIN_BATCH, 250)):
+        top_bwd, top_fwd = ceiling(dtype, True), ceiling(dtype, False)
+        shapes = [(TRAIN_BATCH if L == 250 else 3, L, True) for L in BLOCK_LENGTHS]
+        shapes += [(64, top_bwd, True), (64, top_fwd, False)]
+        log(f"block kernels {name}: the longest L that fits is {top_fwd} forward, "
+            f"{top_bwd} backward")
+        for B, L, backward in shapes:
             x, g = (torch.randn(B, L, 64, generator=gen).to(dev, dtype) for _ in range(2))
             drawn = [bt.make_dropout_scales(k, 0.2, x.shape, dtype)
                      for k in prng.split(prng.key(B, dev))]
-            for scales in (drawn, [None, None]):
-                out = bt.fused_block_train_forward(x, weights, *scales, 8)
-                gx, gws = bt.fused_block_train_backward(x, weights, *scales, g, 8)
-                gx2, gws2 = bt.fused_block_train_backward(x, weights, *scales, g, 8)
-                torch.cuda.synchronize()
-                ref = bt.fused_block_train_reference(x, weights, *scales, 8)
-                rx, rws = bt.fused_block_train_backward_reference(x, weights, *scales, g, 8)
-                what = (f"block kernels {name} {B}x{L} dropout "
-                        f"{'on' if scales[0] is not None else 'off'}")
-                check(torch.equal(gx, gx2) and all(torch.equal(a, b) for a, b in zip(gws, gws2)),
-                      f"{what}: two backward runs differ")
-                check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
-                f_err = (out.float() - ref.float()).abs().max().item()
-                f_max = max(1.0, ref.float().abs().max().item())
-                x_max = max(1.0, rx.float().abs().max().item())
-                x_err = (gx.float() - rx.float()).abs().max().item()
-                # per weight gradient: error as a share of max(1, max|plain|)
-                w_errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
-                          for a, b in zip(gws, rws)]
-                w_err = max(w_errs)
-                worst = "/".join(bt.WEIGHT_FIELDS[w_errs.index(w_err)])
-                # A pre-activation that lands on the other side of 0 in another
-                # summation order flips its relu mask, and that row's gradients move
-                # by a whole term: a few rows in 128,000 do, none in 111. So at the
-                # training shape a small share of entries may miss the tight bar,
-                # and every entry meets a loose one.
-                flips = B * L > 1000
-                if dtype == torch.float32:
-                    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
-                    x_out = outside(gx, rx, 1e-3, 1e-5 * x_max)
-                    w_out = max(outside(a, b, 2e-3, 1e-4 * max(1.0, b.abs().max().item()))
-                                for a, b in zip(gws, rws))
-                    check(w_out <= (2e-2 if flips else 0.0) and w_err <= 1e-2,
-                          f"{what}: weight gradients outside the tight bar on up to {w_out:.2e} "
-                          f"of a leaf, {worst} off by {w_err} of max(1, max|plain|)")
-                else:
-                    check(f_err <= 4 * ulp * f_max, f"{what}: forward err {f_err}")
-                    x_out = outside(gx, rx, 0.0, 8 * ulp * x_max)
-                    w_out = 0.0
-                    check(w_err <= 2e-2, f"{what}: {worst} off by {w_err} of max(1, max|plain|)")
-                check(x_out <= (1e-4 if flips else 0.0) and x_err <= 0.25 * x_max,
-                      f"{what}: gx outside its bar on {x_out:.2e} of the entries, max|err| {x_err}")
-                msg = (f"{what}: forward max|err| {f_err:.3g}; gx max|err| {x_err:.3g} of max|gx| "
-                       f"{rx.float().abs().max().item():.3g}, outside the tight bar {x_out:.2e}; "
-                       f"weight gradients max|err|/max(1, max|plain|) {w_err:.3g} ({worst}), "
-                       f"outside the tight bar {w_out:.2e}; backward bit-equal twice")
-                if B == TRAIN_BATCH and scales[0] is not None:
-                    times = {
-                        "fwd": median_ms(
-                            lambda: bt.fused_block_train_forward(x, weights, *scales, 8)),
-                        "fwd_plain": median_ms(
-                            lambda: bt.fused_block_train_reference(x, weights, *scales, 8)),
-                        "bwd": median_ms(
-                            lambda: bt.fused_block_train_backward(x, weights, *scales, g, 8)),
-                        "bwd_plain": median_ms(lambda: bt.fused_block_train_backward_reference(
-                            x, weights, *scales, g, 8)),
-                    }
-                    result[dtype] = dict(times, fwd_err=f_err, bwd_err=x_err)
-                    msg += "; ms " + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
-                log(msg)
-                del ref, rx, rws
+            f_err, x_err = [hold(dtype, B, L, scales, x, g, backward)
+                            for scales in (drawn, [None, None])][0]  # kept: dropout on
+            if B != TRAIN_BATCH:
+                continue
+            times = {
+                "fwd": median_ms(lambda: bt.fused_block_train_forward(x, weights, *drawn, 8)),
+                "fwd_plain": median_ms(
+                    lambda: bt.fused_block_train_reference(x, weights, *drawn, 8)),
+                "bwd": median_ms(
+                    lambda: bt.fused_block_train_backward(x, weights, *drawn, g, 8)),
+                "bwd_plain": median_ms(lambda: bt.fused_block_train_backward_reference(
+                    x, weights, *drawn, g, 8)),
+            }
+            result[dtype] = dict(times, fwd_err=f_err, bwd_err=x_err)
+            log(f"block kernels {name} {B}x{L} dropout on, ms: "
+                + ", ".join(f"{k} {t:.3f}" for k, t in times.items()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            stages = {}
+            bt._launch_bwd(x, weights, *drawn, g, 8, stage_launchers=stages)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"block backward {name} {B}x{L}, its six launches one by one, ms: "
+                + ", ".join(f"{k} {median_ms(fn):.3f}" for k, fn in stages.items())
+                + f"; device memory allocated {before / 2**20:.0f} MiB before the call, peak "
+                f"{peak / 2**20:.0f} MiB during it")
+            del stages
         x = underflow_input(gen).to(dev, dtype)
         out = bt.fused_block_train_forward(x, weights, None, None, 8)
         gx, gws = bt.fused_block_train_backward(x, weights, None, None, torch.ones_like(x), 8)

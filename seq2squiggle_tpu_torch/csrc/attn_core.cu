@@ -70,9 +70,8 @@
 // C interface (loaded with ctypes by ops/_build.py): each entry point returns
 // cudaGetLastError() after its launch.
 
-#include "attn_common.cuh"
+#include "row_mma.cuh"
 
-#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -199,164 +198,26 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---- bf16 on the tensor cores ------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-// Two choices made by measurement (scripts/profile_torch_attn_core.py builds
-// this file with the other values and times them in turns; PERF.md has the
-// numbers): the exp as ex2.approx on base-2 exponents (1: libm's expf on
-// natural ones, the same in the forward and both sweeps of the backward), and
-// the threads of a thread block of the tensor-core kernels.
-#ifndef S2S_ATTN_CORE_EXPF
-#define S2S_ATTN_CORE_EXPF 0
-#endif
+// A choice made by measurement (scripts/profile_torch_attn_core.py builds this
+// file with the other values and times them in turns; PERF.md has the
+// numbers): the threads of a thread block of the tensor-core kernels. The
+// other, the form of the exp, is in row_mma.cuh with the sweep it belongs to.
 #ifndef S2S_ATTN_CORE_MMA_THREADS
 #define S2S_ATTN_CORE_MMA_THREADS 256
 #endif
 
-constexpr int TILE = 16;                  // queries (or keys) a warp owns; keys per step
 constexpr int MMA_THREADS = S2S_ATTN_CORE_MMA_THREADS;
 constexpr int WARPS = MMA_THREADS / 32;
-// exponents are kept in units of 1/EXP_UNIT: base 2 for ex2.approx
-constexpr float EXP_UNIT = S2S_ATTN_CORE_EXPF ? 1.f : 1.4426950408889634f;
-constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 ones
 
-__host__ __device__ inline int pad_tile(int L) { return (L + TILE - 1) / TILE * TILE; }
-
-// D += A·B, A 16 x 8 (row), B 8 x 8 (col), bf16 operands, f32 sums. Lane l
-// holds, with g = l / 4 and c = 2·(l % 4): A rows g (a[0]) and g + 8 (a[1]),
-// columns c, c + 1; B rows c, c + 1 of column g; D rows g (d[0], d[1]) and
-// g + 8 (d[2], d[3]), columns c, c + 1.
-__device__ __forceinline__ void mma_k8(float d[4], const uint32_t a[2], uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b));
-}
-
-// D += A·B, A 16 x 16, B 16 x 8: a[0], a[1] as above for columns 0..7, a[2],
-// a[3] the same rows for columns 8..15; b0 rows c, c + 1 and b1 rows c + 8,
-// c + 9 of column g.
-__device__ __forceinline__ void mma_k16(float d[4], const uint32_t a[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Sixteen rows of a head's slice in shared memory (16 bytes each) as two 8 x 8
-// fragments: r0 from rows row0..row0+7, r1 from the next eight. Plain: lane l
-// gets columns c, c + 1 of row g (the B operand of a product over the 8
-// channels, or the rows' own values). Transposed: rows c, c + 1 of column g
-// (the B operand of a product over the 16 rows).
-__device__ __forceinline__ void load_rows(uint32_t& r0, uint32_t& r1, const bf16* slice,
-                                          int row0, int lane) {
-  const uint32_t addr =
-      (uint32_t)__cvta_generic_to_shared(slice + (row0 + (lane & 15)) * DK);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(addr));
-}
-__device__ __forceinline__ void load_rows_t(uint32_t& r0, uint32_t& r1, const bf16* slice,
-                                            int row0, int lane) {
-  const uint32_t addr =
-      (uint32_t)__cvta_generic_to_shared(slice + (row0 + (lane & 15)) * DK);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(addr));
-}
-
-// The A operand of m16n8k8 for rows row0..row0+15 of a slice.
-__device__ __forceinline__ void load_a(uint32_t a[2], const bf16* slice, int row0, int lane) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(slice) + row0 * (DK / 2) + lane;
-  a[0] = w[0];
-  a[1] = w[8 * (DK / 2)];
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ float lo_f(uint32_t p) { return __uint_as_float(p << 16); }
-__device__ __forceinline__ float hi_f(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-#if S2S_ATTN_CORE_EXPF
-  return expf(x);
-#else
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-#endif
-}
-
-// Two neighbouring values of e = exp(s/√d_k − shift), rounded to bf16 and
-// packed: 2^(s·scale2 − shift2) with scale2 = log2(e)/√d_k and shift2 =
-// log2(e)·shift. The one place the kernels evaluate the exp: forward and both
-// sweeps of the backward go through it.
-__device__ __forceinline__ uint32_t exp_pair(float s0, float s1, float scale2, float shift2_0,
-                                             float shift2_1) {
-  return pack2(ex2(fmaf(s0, scale2, -shift2_0)), ex2(fmaf(s1, scale2, -shift2_1)));
-}
-
-// log2(e)·(the Cauchy–Schwarz shift) of the row whose channels c, c + 1 this
-// lane holds in `pair` (the quad holds the row's eight).
-__device__ __forceinline__ float row_shift2(uint32_t pair, float knorm, float inv_temp) {
-  const float lo = lo_f(pair), hi = hi_f(pair);
-  const float n2 = quad_sum(fmaf(hi, hi, __fmul_rn(lo, lo)));
-  return __fmul_rn(__fmul_rn(__fmul_rn(sqrtf(n2), knorm), inv_temp), EXP_UNIT);
-}
-
-// e for the 16 queries of A operand `qa` against keys s0..s0+15, as the A
-// operand of m16n8k16 (queries x keys); keys >= L give 0. sh0, sh1: shift2 of
-// query rows g and g + 8.
-__device__ __forceinline__ void exp_block_rows(uint32_t e[4], const uint32_t qa[2],
-                                               const bf16* sK, int s0, int L, int lane,
-                                               float scale2, float sh0, float sh1) {
-  uint32_t kb0, kb1;
-  load_rows(kb0, kb1, sK, s0, lane);
-  float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_k8(c0, qa, kb0);
-  mma_k8(c1, qa, kb1);
-  e[0] = exp_pair(c0[0], c0[1], scale2, sh0, sh0);
-  e[1] = exp_pair(c0[2], c0[3], scale2, sh1, sh1);
-  e[2] = exp_pair(c1[0], c1[1], scale2, sh0, sh0);
-  e[3] = exp_pair(c1[2], c1[3], scale2, sh1, sh1);
-  if (s0 + TILE > L) {  // the ragged last step: a zero key would give exp(−shift)
-    const int key = s0 + 2 * (lane & 3);
-    const uint32_t m0 = (key < L ? 0x0000ffffu : 0u) | (key + 1 < L ? 0xffff0000u : 0u);
-    const uint32_t m1 = (key + 8 < L ? 0x0000ffffu : 0u) | (key + 9 < L ? 0xffff0000u : 0u);
-    e[0] &= m0; e[1] &= m0; e[2] &= m1; e[3] &= m1;
-  }
-}
+// The fragment loads, the mma steps, the exp on the fragment (`exp_pair`,
+// `exp_block_rows`) and the sweep of 16 queries over all keys (`attend_tile`)
+// are in row_mma.cuh: the whole-block training kernels run the same sweep.
 
 // Two neighbouring values of dS = cast(e·((g_a − r)/√d_k)), packed.
 __device__ __forceinline__ uint32_t ds_pair(uint32_t e, float ga0, float ga1, float r0,
                                             float r1, float inv_temp) {
   return pack2(__fmul_rn(lo_f(e), __fmul_rn(__fsub_rn(ga0, r0), inv_temp)),
                __fmul_rn(hi_f(e), __fmul_rn(__fsub_rn(ga1, r1), inv_temp)));
-}
-
-// num = Σ e·v and den = Σ e (not yet clamped) of the 16 queries of `qa` over
-// all keys: rows g in [0], [1] and g + 8 in [2], [3]; den the same in both
-// columns.
-__device__ __forceinline__ void attend_tile(float num[4], float den[4], const uint32_t qa[2],
-                                            const bf16* sK, const bf16* sV, int L, int Lp,
-                                            int lane, float scale2, float sh0, float sh1) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) num[i] = den[i] = 0.f;
-  for (int s0 = 0; s0 < Lp; s0 += TILE) {
-    uint32_t e[4], vt0, vt1;
-    exp_block_rows(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
-    load_rows_t(vt0, vt1, sV, s0, lane);
-    mma_k16(num, e, vt0, vt1);
-    mma_k16(den, e, ONES2, ONES2);
-  }
 }
 
 // A head's slice (L rows of 8, D apart in device memory) into shared memory,

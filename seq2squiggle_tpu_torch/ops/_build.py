@@ -83,6 +83,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.s2s_attn_core_bwd.restype = c_int
     lib.s2s_attn_core_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
                                       c_int, ctypes.c_float, ptr]
+    bind_block_train(lib)
+    lib.s2s_error_string.restype = ctypes.c_char_p
+    lib.s2s_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def bind_block_train(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points of csrc/block_train.cu (also for a library that
+    scripts/profile_torch_block_train.py built from that file alone)."""
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
     ptrs = ctypes.POINTER(ptr)
     lib.s2s_block_train_workspace.restype = None
     lib.s2s_block_train_workspace.argtypes = [c_int, c_int, ctypes.POINTER(ctypes.c_longlong)]
@@ -91,9 +101,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         ctypes.c_float, ptr]
     lib.s2s_block_train_bwd.restype = c_int
     lib.s2s_block_train_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptrs, ptr, ptr, ptr,
-                                        c_int, c_int, c_int, ctypes.c_float, ptr]
-    lib.s2s_error_string.restype = ctypes.c_char_p
-    lib.s2s_error_string.argtypes = [ctypes.c_int]
+                                        c_int, c_int, c_int, ctypes.c_float, c_int, ptr]
     return lib
 
 

@@ -27,21 +27,24 @@ runs.
 
 What bounds the kernels on the H100: operations, as the fused inference
 block. A forward call at (512, 250, 64) in bf16 moves four tensors of 16 MB
-and does 20.7 GFLOP; the backward moves five and does about 62 GFLOP. This
-first version runs them as f32 FMA loops on the CUDA cores. The forward is
-one kernel (plus a pass that rounds the weights once per call): one thread
-block per batch row, q, k, v in shared memory, scores never stored. The
-backward's live set does not fit in shared memory, so it is six launches
-over a device-memory workspace: weights rounded and transposed; recompute and
-walk back to the gradient of ctx, one row per warp; the attention-core
-backward per (row, head), in bf16 on the tensor cores (csrc/attn_core.cu);
-gx and the projections' operands; the six Aᵀ·G
+and does 20.7 GFLOP; the backward moves five and does about 62 GFLOP. The
+forward is one kernel (plus a pass that rounds the weights once per call): one
+thread block per batch row, q, k, v in shared memory, scores never stored.
+The backward's live set does not fit in shared memory, so it is six launches
+over a device-memory workspace (`BACKWARD_STAGES`): weights rounded; recompute
+and walk back to the gradient of ctx; the attention-core backward per (row,
+head) (csrc/attn_core.cu); gx and the projections' operands; the six Aᵀ·G
 weight-gradient products split over a fixed 64 ranges of positions; and a
 pass that adds the partial sums in index order. No atomics anywhere: every
 sum has a fixed order that does not depend on the card, so the gradients are
-bit-equal from run to run. A sequence too long for the per-batch-row kernels'
-shared memory (f32: L > 289 forward, L > 283 backward) is refused with a
-ValueError before any launch (`shared_memory_bytes`).
+bit-equal from run to run. In bfloat16 every matrix product runs on the
+tensor cores (`mma.sync`): a warp owns a 16-row slab of positions and the
+thread block stages its weights in shared memory once; float32 (TF32 stays
+off) runs as f32 FMA loops on the CUDA cores, a warp per position. A sequence
+too long for the per-batch-row kernels' shared memory (bf16: L > 352 forward,
+L > 336 backward, all of Wf, W1 and W2 sitting beside q, k, v; f32: L > 289
+forward, L > 283 backward) is refused with a ValueError before any launch
+(`shared_memory_bytes`).
 """
 
 from __future__ import annotations
@@ -218,16 +221,28 @@ def _check(x, weights, s_a, s_f, n_head: int, g=None) -> None:
                              f"masters); got {tuple(w.shape)} {w.dtype} on {w.device}")
 
 
+# The weight region of the bfloat16 kernels' shared memory, in bytes: Wf and W2
+# in rows of 64 + 8 values, W1 in rows of 256 + 8 (Wq, Wk, Wv sit there first).
+_ROW_PAD = 8
+_WEIGHT_REGION = 2 * ((D_MODEL + D_FF) * (D_MODEL + _ROW_PAD) + D_MODEL * (D_FF + _ROW_PAD))
+
+
 def shared_memory_bytes(L: int, dtype: torch.dtype, backward: bool) -> int:
     """Dynamic shared memory of one thread block of the per-batch-row kernels:
-    the Python twin of row_kernel_smem in csrc/block_train.cu (q, k, v rows,
-    per warp a 64- and a 256-wide scratch row and, backward, a second 64-wide
-    one; then max‖k‖ per head and, backward, the 640 vector sums). The
-    backward also runs the attention-core backward, which needs less."""
-    size = torch.finfo(dtype).bits // 8
-    warps, n_row_vecs = 8, 6 * D_MODEL + D_FF
-    rows = ((3 * L * D_MODEL + warps * (D_MODEL + D_FF + (D_MODEL if backward else 0))) * size
-            + (N_HEAD + (n_row_vecs if backward else 0)) * 4)
+    the Python twin of rows_mma_smem (bfloat16) and row_kernel_smem (float32)
+    in csrc/block_train.cu. bfloat16: q, k, v with L padded to 16-row slabs,
+    rows of 64 + 8 values; the weight region; max‖k‖ per head and, backward,
+    the 640 vector sums. float32: q, k, v rows, per warp a 64- and a 256-wide
+    scratch row and, backward, a second 64-wide one; then the same floats.
+    The backward also runs the attention-core backward, which needs less."""
+    n_floats = N_HEAD + ((6 * D_MODEL + D_FF) if backward else 0)
+    if dtype == torch.bfloat16:
+        padded = -(-L // 16) * 16
+        rows = 3 * padded * (D_MODEL + _ROW_PAD) * 2 + _WEIGHT_REGION + n_floats * 4
+    else:
+        size, warps = torch.finfo(dtype).bits // 8, 8
+        rows = ((3 * L * D_MODEL + warps * (D_MODEL + D_FF + (D_MODEL if backward else 0))) * size
+                + n_floats * 4)
     return max(rows, attn_core_smem(L, dtype, True)) if backward else rows
 
 
@@ -254,7 +269,9 @@ def _workspace(lib, x):
     return tuple(sizes)
 
 
-def _launch_fwd(x, weights, s_a, s_f, n_head: int) -> torch.Tensor:
+def _launch_fwd(x, weights, s_a, s_f, n_head: int, lib=None) -> torch.Tensor:
+    """lib: another build of csrc/block_train.cu than the package's (the
+    profiling script's), bound with `_build.bind_block_train`."""
     global launches_fwd
     _check(x, weights, s_a, s_f, n_head)
     B, L, D = x.shape
@@ -262,7 +279,7 @@ def _launch_fwd(x, weights, s_a, s_f, n_head: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if B == 0 or L == 0:
         return out
-    lib = _build.load()
+    lib = lib or _build.load()
     wc = torch.empty(_workspace(lib, x)[0], dtype=x.dtype, device=x.device)
     err = lib.s2s_block_train_fwd(
         _ptr(x), _ptr(s_a), _ptr(s_f), _ptr(out), _weight_pointers(weights), _ptr(wc),
@@ -287,7 +304,16 @@ def _grad_views(gw: torch.Tensor, weights):
     return views
 
 
-def _launch_bwd(x, weights, s_a, s_f, g, n_head: int):
+# The backward's CUDA launches in order; bit i of the entry point's `stages`.
+BACKWARD_STAGES = ("round_weights", "rows", "attention", "input", "wgrad", "reduce")
+_ALL_STAGES = (1 << len(BACKWARD_STAGES)) - 1
+
+
+def _launch_bwd(x, weights, s_a, s_f, g, n_head: int, lib=None, stage_launchers=None):
+    """stage_launchers: a dict to fill with {stage name: function that makes
+    that one launch again on this call's buffers}, for timing the stages
+    (each reads what the earlier ones left in the workspace); those launches
+    are not counted."""
     global launches_bwd
     _check(x, weights, s_a, s_f, n_head, g)
     B, L, D = x.shape
@@ -297,19 +323,26 @@ def _launch_bwd(x, weights, s_a, s_f, g, n_head: int):
     if B == 0 or L == 0:
         return gx, _grad_views(torch.zeros(n_gw, device=x.device), weights)
     gw = torch.empty(n_gw, dtype=torch.float32, device=x.device)
-    lib = _build.load()
+    lib = lib or _build.load()
     n_wc, n_cd, n_f32 = _workspace(lib, x)
     wc = torch.empty(n_wc, dtype=x.dtype, device=x.device)
     ws_cd = torch.empty(n_cd, dtype=x.dtype, device=x.device)
     ws_f32 = torch.empty(n_f32, dtype=torch.float32, device=x.device)
-    err = lib.s2s_block_train_bwd(
-        _ptr(x), _ptr(s_a), _ptr(s_f), _ptr(g), _ptr(gx), _ptr(gw),
-        _weight_pointers(weights), _ptr(wc), _ptr(ws_cd), _ptr(ws_f32),
-        B, L, _DTYPE_CODES[x.dtype], 1.0 / math.sqrt(D // n_head),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"block-train backward launch failed: {_build.error_string(err)}")
+
+    def launch(stages: int) -> None:
+        err = lib.s2s_block_train_bwd(
+            _ptr(x), _ptr(s_a), _ptr(s_f), _ptr(g), _ptr(gx), _ptr(gw),
+            _weight_pointers(weights), _ptr(wc), _ptr(ws_cd), _ptr(ws_f32),
+            B, L, _DTYPE_CODES[x.dtype], 1.0 / math.sqrt(D // n_head), stages,
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"block-train backward launch failed: {_build.error_string(err)}")
+
+    launch(_ALL_STAGES)
     launches_bwd += 1
+    if stage_launchers is not None:
+        for i, name in enumerate(BACKWARD_STAGES):
+            stage_launchers[name] = lambda bit=1 << i: launch(bit)
     return gx, _grad_views(gw, weights)
 
 

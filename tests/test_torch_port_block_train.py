@@ -149,6 +149,58 @@ def test_backward_matches_pallas_grad(blocks, dtype, dropout):
             assert np.abs(g.numpy() - ref).max() <= 8 * ULP * scale, "/".join(path)
 
 
+SLAB_EDGES = [1, 15, 16, 17, 37]  # around the CUDA kernels' 16-row slabs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", SLAB_EDGES)
+def test_forward_matches_pallas_at_slab_edges(blocks, L, dtype):
+    """The plain forward at the lengths where the bfloat16 CUDA kernels' 16-row
+    slabs are ragged: the reference those kernels are held against on the card
+    (chip_smoke.py phase 8 runs the same lengths). B = 2, dropout on."""
+    jd, td = DTYPES[dtype]
+    jb, tb = blocks[0][0], blocks[1][0]
+    x = np.random.default_rng(30 + L).standard_normal((2, L, 64)).astype(np.float32)
+    jscales, tscales = both_scales(x.shape, jd, td)
+    ref = f32(jblock.fused_block_train(jnp.asarray(x).astype(jd), jb, *jscales, H))
+    got = f32(tblock.fused_block_train(torch.from_numpy(x).to(td), tb, *tscales, H))
+    assert got.shape == (2, L, 64)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.abs(got - ref).max() <= 4 * ULP * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", SLAB_EDGES)
+def test_backward_matches_pallas_grad_at_slab_edges(blocks, L, dtype):
+    """The hand-written plain backward against jax.grad through the Pallas pair
+    at the same lengths, B = 2, dropout on; bars of
+    test_backward_matches_pallas_grad."""
+    jd, td = DTYPES[dtype]
+    jb, tb = blocks[0][0], blocks[1][0]
+    rng = np.random.default_rng(40 + L)
+    x = rng.standard_normal((2, L, 64)).astype(np.float32)
+    w = rng.standard_normal((2, L, 64)).astype(np.float32)
+    jscales, tscales = both_scales(x.shape, jd, td)
+    ref_gx, ref_gw = jax_grads(jb, x, w, jscales, jd)
+    gx, gws = tblock.fused_block_train_backward(
+        torch.from_numpy(x).to(td), tblock.block_weights(tb), *tscales,
+        torch.from_numpy(w).to(td), H)
+    if dtype == "float32":
+        np.testing.assert_allclose(f32(gx), ref_gx, rtol=1e-3, atol=1e-5, err_msg="gx")
+    else:
+        assert np.abs(f32(gx) - ref_gx).max() <= 8 * ULP * max(1.0, np.abs(ref_gx).max())
+    for path, g in zip(tblock.WEIGHT_FIELDS, gws):
+        ref = ref_gw[path]
+        scale = max(1.0, np.abs(ref).max())
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), ref, rtol=2e-3, atol=1e-4 * scale,
+                                       err_msg="/".join(path))
+        else:
+            assert np.abs(g.numpy() - ref).max() <= 8 * ULP * scale, "/".join(path)
+
+
 @pytest.mark.parametrize("dropout", [True, False])
 def test_hand_backward_matches_autograd_through_plain_block(blocks, dropout):
     """The same masks through ops.attention.fft_block (the plain rung, under
@@ -295,3 +347,14 @@ def test_block_kernels_match_plain_on_the_card(blocks):
     torch.testing.assert_close(gx, rx, rtol=1e-3, atol=1e-5 * max(1.0, rx.abs().max().item()))
     for a, b in zip(gws, rws):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=1e-4 * max(1.0, b.abs().max().item()))
+    # bfloat16, the tensor-core kernels, ragged in their 16-row slabs
+    xb, gb = x.bfloat16(), g.bfloat16()
+    ref = tblock.fused_block_train_reference(xb, weights, None, None, H).float()
+    out = tblock.fused_block_train_forward(xb, weights, None, None, H).float()
+    assert (out - ref).abs().max() <= 4 * ULP * max(1.0, ref.abs().max().item())
+    gx, gws = tblock.fused_block_train_backward(xb, weights, None, None, gb, H)
+    rx, rws = tblock.fused_block_train_backward_reference(xb, weights, None, None, gb, H)
+    assert ((gx.float() - rx.float()).abs().max()
+            <= 8 * ULP * max(1.0, rx.float().abs().max().item()))
+    for a, b in zip(gws, rws):
+        assert (a - b).abs().max() <= 2e-2 * max(1.0, b.abs().max().item())

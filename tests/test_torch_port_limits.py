@@ -1,8 +1,8 @@
 """The ceilings of the port's CUDA kernels on sequence length, checked on the
 CPU. Each kernel keeps a batch row's (or a head's) working set in shared
 memory; its wrapper computes the bytes from the same formula as its .cu file
-(`shared_memory_bytes`, the Python twin of row_kernel_smem in
-csrc/block_train.cu, fwd_smem_bytes / bwd_smem_bytes in csrc/attn_core.cu and
+(`shared_memory_bytes`, the Python twin of rows_mma_smem and row_kernel_smem
+in csrc/block_train.cu, fwd_smem_bytes / bwd_smem_bytes in csrc/attn_core.cu and
 block_smem_bytes in csrc/fft_block_body.cuh) against the 232,448 bytes a
 thread block can opt into on an H100, and raises a ValueError that names L,
 the dtype, the bytes and the largest L that fits, before any launch. The
@@ -12,8 +12,12 @@ The expected ceilings are worked out here from the layouts, not read from
 the wrappers: the largest L with bytes(L) <= 232,448, bytes being
   attention core, bf16   48 (forward) or 72 (backward) per row of ceil16(L)
   attention core, f32    64 or 136 per row of L
-  whole block, forward   3·64·L·size + 8·(64 + 256)·size + 8·4
-  whole block, backward  3·64·L·size + 8·(2·64 + 256)·size + (8 + 640)·4
+  whole block, f32       forward 3·64·L·4 + 8·(64 + 256)·4 + 8·4
+                         backward 3·64·L·4 + 8·(2·64 + 256)·4 + (8 + 640)·4
+  whole block, bf16      q, k, v in rows of 64 + 8 values, L padded to 16-row
+                         slabs: 3·72·ceil16(L)·2; the weight region (Wf and W2
+                         in rows of 72, W1 in rows of 264): 79,872; then 8·4
+                         (forward) or (8 + 640)·4 (backward)
   fused block and pair   3·64·L·size + 8·256·size + 8·4
 """
 
@@ -53,15 +57,19 @@ CHECKS = {
                        "fused_fft_block_pair"),
 }
 
+# the bf16 whole-block kernels' weights in shared memory: (64 + 256) rows of 72
+# values (Wf, W2) and 64 rows of 264 (W1), 2 bytes each
+WEIGHT_REGION = ((64 + 256) * 72 + 64 * 264) * 2
+
 # (wrapper, dtype) -> (the largest L that fits, its bytes)
 CEILINGS = [
     ("core_fwd", BF16, 4832, 48 * 4832),
     ("core_fwd", F32, 3632, 64 * 3632),
     ("core_bwd", BF16, 3216, 72 * 3216),
     ("core_bwd", F32, 1709, 136 * 1709),
-    ("block_fwd", BF16, 591, 192 * 591 * 2 + 8 * 320 * 2 + 32),
+    ("block_fwd", BF16, 352, 3 * 72 * 352 * 2 + WEIGHT_REGION + 32),
     ("block_fwd", F32, 289, 192 * 289 * 4 + 8 * 320 * 4 + 32),
-    ("block_bwd", BF16, 582, 192 * 582 * 2 + 8 * 384 * 2 + 648 * 4),
+    ("block_bwd", BF16, 336, 3 * 72 * 336 * 2 + WEIGHT_REGION + 648 * 4),
     ("block_bwd", F32, 283, 192 * 283 * 4 + 8 * 384 * 4 + 648 * 4),
     ("fft_block", BF16, 594, 192 * 594 * 2 + 8 * 256 * 2 + 32),
     ("fft_block", F32, 291, 192 * 291 * 4 + 8 * 256 * 4 + 32),
@@ -92,6 +100,29 @@ def test_f32_whole_block_backward_takes_283_and_refuses_284():
     bt.check_length(283, F32, backward=True)
     with pytest.raises(ValueError, match=re.escape("the largest L that fits is 283")):
         bt.check_length(284, F32, backward=True)
+
+
+def test_bf16_whole_block_fits_the_training_length_in_both_directions():
+    """L = 250 (padded to 256 rows) with all of Wf, W1 and W2 beside q, k, v."""
+    assert WEIGHT_REGION == 79_872
+    assert bt.shared_memory_bytes(250, BF16, False) == 3 * 72 * 256 * 2 + 79_872 + 32 == 190_496
+    assert bt.shared_memory_bytes(250, BF16, True) == 190_496 + 640 * 4 <= LIMIT
+    bt.check_length(250, BF16, backward=False)
+    bt.check_length(250, BF16, backward=True)
+
+
+def test_bf16_whole_block_ceiling_moves_in_slabs_of_16():
+    """337..352 need the same: the forward takes them, the backward none."""
+    for backward in (False, True):
+        assert (bt.shared_memory_bytes(337, BF16, backward)
+                == bt.shared_memory_bytes(352, BF16, backward))
+        assert (bt.shared_memory_bytes(1, BF16, backward)
+                == bt.shared_memory_bytes(16, BF16, backward))
+    bt.check_length(352, BF16, backward=False)
+    with pytest.raises(ValueError, match="largest L that fits is 352"):
+        bt.check_length(353, BF16, backward=False)
+    with pytest.raises(ValueError, match="largest L that fits is 336"):
+        bt.check_length(337, BF16, backward=True)
 
 
 def test_bf16_core_ceiling_moves_in_tiles_of_16():
