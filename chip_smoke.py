@@ -705,11 +705,11 @@ def phase_block_kernels(dev):
                   for a, b in zip(gws, rws)]
         w_err = max(w_errs)
         worst = "/".join(bt.WEIGHT_FIELDS[w_errs.index(w_err)])
-        # A pre-activation that lands on the other side of 0 in another
-        # summation order flips its relu mask, and that row's gradients move
-        # by a whole term: a few rows in 128,000 do, none in 111. So above 1000
-        # positions a small share of entries may miss the tight bar, and every
-        # entry meets a loose one.
+        # A pre-activation that lands on the other side of 0 flips its relu
+        # mask, and that row's gradients move by a whole term: a few rows in
+        # 128,000 do (scripts/profile_torch_block_train.py --relu-flips counts
+        # them), none in 111. So above 1000 positions a small share of entries
+        # may miss the tight bar, and every entry meets a loose one.
         flips = B * L > 1000
         if dtype == torch.float32:
             x_out = outside(gx, rx, 1e-3, 1e-5 * x_max)
@@ -734,7 +734,7 @@ def phase_block_kernels(dev):
         name = str(dtype)[6:]
         top_bwd, top_fwd = ceiling(dtype, True), ceiling(dtype, False)
         shapes = [(TRAIN_BATCH if L == 250 else 3, L, True) for L in BLOCK_LENGTHS]
-        shapes += [(64, top_bwd, True), (64, top_fwd, False)]
+        shapes += [(64, top_bwd, True)] + ([(64, top_fwd, False)] if top_fwd > top_bwd else [])
         log(f"block kernels {name}: the longest L that fits is {top_fwd} forward, "
             f"{top_bwd} backward")
         for B, L, backward in shapes:

@@ -5,6 +5,7 @@ way beside them.
 
     python scripts/profile_torch_block_train.py [--rounds 4] [--batch 512]
     python scripts/profile_torch_block_train.py --whole [--tree CHECKOUT]
+    python scripts/profile_torch_block_train.py --relu-flips [--batch 512] [--length 250]
 
 csrc/block_train.cu is built with csrc/attn_core.cu (its backward runs the
 attention-core backward as one stage) once per variant, all nvcc runs started
@@ -33,6 +34,19 @@ earlier ones wrote). Reported: the minimum over the rounds and the rounds, ms.
 --whole times only the public forward and backward, bfloat16 and float32, of
 the package in CHECKOUT (default: this checkout), so that two trees can be
 compared in one call on one card, each in its own process.
+
+--relu-flips times nothing. For each variant it counts the entries of the
+256-wide hidden layer whose relu mask differs between the kernel (f1 > 0 in
+the backward's workspace) and the plain version (pre > 0): a pre-activation
+that lands on the other side of 0 moves that position's W1, b1 and upstream
+gradients by a whole term. It prints the count, the positions that hold one,
+the largest |pre| of the plain version at such an entry (a flip is a
+pre-activation near 0; a large one would be a fault), and the error of the W1
+and b1 gradients and of the worst gradient, as a share of max(1, max|plain|),
+first as they are and then with g set to 0 at the positions that hold a flip
+in both the kernel and the plain version (the hidden layer is per position, so
+those positions then add nothing to either). What is left is the error that
+does not come from flipped masks.
 
 Prints the card as nvidia-smi names it, one line per reading, and as its last
 line one JSON object with every number.
@@ -164,6 +178,67 @@ def profile(rounds: int = 4, batch: int = 512, L: int = 250) -> dict:
             "errors": errs}
 
 
+def backward_keeping_f1(bt, lib, x, weights, scales, g):
+    """A whole backward through the C interface on this function's own
+    buffers: (gx, the 16 gradients, f1 as the rows stage left it, (B, L, 256)).
+    The compute-dtype workspace is eleven (B·L, 64) buffers, then f1, then gf1c
+    (`Workspace` in csrc/block_train.cu)."""
+    B, L, D = x.shape
+    n_wc, n_cd, n_f32 = bt._workspace(lib, x)
+    wc = torch.empty(n_wc, dtype=x.dtype, device=x.device)
+    ws_cd = torch.empty(n_cd, dtype=x.dtype, device=x.device)
+    ws_f32 = torch.empty(n_f32, dtype=torch.float32, device=x.device)
+    gx = torch.empty_like(x)
+    gw = torch.empty(sum(w.numel() for w in weights), dtype=torch.float32, device=x.device)
+    err = lib.s2s_block_train_bwd(
+        bt._ptr(x), bt._ptr(scales[0]), bt._ptr(scales[1]), bt._ptr(g), bt._ptr(gx), bt._ptr(gw),
+        bt._weight_pointers(weights), bt._ptr(wc), bt._ptr(ws_cd), bt._ptr(ws_f32),
+        B, L, bt._DTYPE_CODES[x.dtype], 1.0 / (D // N_HEAD) ** 0.5, bt._ALL_STAGES,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"backward launch failed: {err}")
+    f1 = ws_cd[11 * B * L * D:][:B * L * 4 * D].view(B, L, 4 * D).clone()
+    return gx, bt._grad_views(gw, weights), f1
+
+
+def relu_flips(rounds: int = 0, batch: int = 512, L: int = 250) -> dict:
+    """Flipped relu masks, kernel against plain, and what they do to the
+    weight gradients (see the module's text)."""
+    from seq2squiggle_tpu_torch.ops import _build
+    from seq2squiggle_tpu_torch.ops import block_train as bt
+
+    x, g, scales, weights = inputs(bt, batch, L, torch.bfloat16)
+    libs = build_variants(_build)
+    pre = bt._recompute(x, weights, *scales, N_HEAD)["pre"]
+    i_w1, i_b1 = (bt.WEIGHT_FIELDS.index(("ffn", "w_1", leaf)) for leaf in ("kernel", "bias"))
+
+    def errors(gws, rws):
+        share = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                 for a, b in zip(gws, rws)]
+        return {"w1": share[i_w1], "b1": share[i_b1], "worst": max(share),
+                "worst_leaf": "/".join(bt.WEIGHT_FIELDS[share.index(max(share))])}
+
+    _, rws = bt.fused_block_train_backward_reference(x, weights, *scales, g, N_HEAD)
+    out = {}
+    for name, lib in libs.items():
+        _, gws, f1 = backward_keeping_f1(bt, lib, x, weights, scales, g)
+        flipped = (f1 > 0) != (pre > 0)
+        rows = flipped.any(dim=-1)
+        g_kept = g * (~rows)[..., None].to(g.dtype)
+        _, gws_kept, _ = backward_keeping_f1(bt, lib, x, weights, scales, g_kept)
+        _, rws_kept = bt.fused_block_train_backward_reference(x, weights, *scales, g_kept, N_HEAD)
+        out[name] = {
+            "flipped_entries": int(flipped.sum()), "entries": flipped.numel(),
+            "positions_with_a_flip": int(rows.sum()), "positions": rows.numel(),
+            "max_abs_pre_at_a_flip": pre[flipped].abs().max().item() if flipped.any() else 0.0,
+            "max_abs_pre": pre.abs().max().item(),
+            "errors": errors(gws, rws), "errors_without_those_positions":
+                errors(gws_kept, rws_kept)}
+    return {"shape": [batch, L, 64], "dtype": "bfloat16", "dropout_scales": True,
+            "relu_flips": out}
+
+
 def profile_whole(rounds: int = 4, batch: int = 512, L: int = 250) -> dict:
     """The public forward and backward of the package on sys.path, both dtypes."""
     from seq2squiggle_tpu_torch.ops import block_train as bt
@@ -187,6 +262,10 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--whole", action="store_true",
                     help="time only the public forward and backward, bfloat16 and float32")
+    ap.add_argument("--relu-flips", action="store_true",
+                    help="count the relu masks that differ from the plain version's, and the "
+                         "weight gradients' error with and without their positions")
+    ap.add_argument("--length", type=int, default=250)
     ap.add_argument("--tree", default=str(ROOT),
                     help="with --whole: the checkout whose package is timed")
     args = ap.parse_args()
@@ -200,10 +279,19 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = (profile_whole if args.whole else profile)(args.rounds, args.batch)
+    mode = profile_whole if args.whole else relu_flips if args.relu_flips else profile
+    result = mode(args.rounds, args.batch, args.length)
     if args.whole:
         print(f"tree: {tree}", flush=True)
-    for name, best in result["ms"].items():
+    for name, r in result.get("relu_flips", {}).items():
+        e, k = r["errors"], r["errors_without_those_positions"]
+        print(f"{name:24s}: {r['flipped_entries']} of {r['entries']} masks flipped, at "
+              f"{r['positions_with_a_flip']} of {r['positions']} positions; largest |pre| at a "
+              f"flip {r['max_abs_pre_at_a_flip']:.3g} (of all {r['max_abs_pre']:.3g}); error / "
+              f"max(1, max|plain|): W1 {e['w1']:.3g}, b1 {e['b1']:.3g}, worst {e['worst']:.3g} "
+              f"({e['worst_leaf']}); without those positions: W1 {k['w1']:.3g}, b1 {k['b1']:.3g}, "
+              f"worst {k['worst']:.3g} ({k['worst_leaf']})", flush=True)
+    for name, best in result.get("ms", {}).items():
         rounds = ", ".join(f"{t:.4f}" for t in result["rounds"][name])
         print(f"{name:44s}: min {best:8.4f} ms  (rounds: {rounds})", flush=True)
     print(json.dumps({"card": card, "tree": str(tree), "torch": torch.__version__,

@@ -29,9 +29,9 @@
 // the 256-wide hidden layer stays in registers, and the in-block attention is
 // the attention core's sweep. Measured at (512, 250, 64) with dropout scales on
 // an NVIDIA H100 80GB HBM3 at 700 W (scripts/profile_torch_block_train.py,
-// launches back to back): forward 0.26 ms, backward 1.19 ms (rows 0.61, the
+// launches back to back): forward 0.25 ms, backward 1.20 ms (rows 0.62, the
 // attention-core backward 0.35, wgrad 0.11, input 0.09), where the f32 path's
-// design below, built for bf16, takes 2.29 and 10.64 ms. PERF.md (section 6,
+// design below, built for bf16, takes 2.29 and 10.66 ms. PERF.md (section 6,
 // B3) has the rest. f32 has no tensor-core form with TF32 off and keeps the
 // CUDA-core kernels:
 //
@@ -533,8 +533,9 @@ bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ s_a, const T* __r
 // One thread block per batch row as above, but a WARP owns a 16-row slab of
 // positions and every matrix product of the row stages is `mma.sync` over that
 // slab (row_mma.cuh) against weights that the thread block staged in shared
-// memory once: Wq, Wk, Wv for the projections, then Wf, W1, W2 in the same
-// region for the tail. Nothing streams a weight matrix per position.
+// memory once: Wq, Wk, Wv for the projections beside k and v, then Wf, W1, W2
+// over k, v and those three for the tail. Nothing streams a weight matrix per
+// position.
 //   projections  x slab (A operands straight from device memory) · Wq, Wk, Wv;
 //                bias, cast, into shared memory (rows 144 bytes apart)
 //   attention    warp h takes head h: `attend_tile`, the attention core's
@@ -559,22 +560,30 @@ bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ s_a, const T* __r
 
 constexpr int LDA = D + 8;      // values between 64-wide rows in shared memory
 constexpr int LDW1 = DFF + 8;   // ... between W1's 256-wide rows
-// the weight region, in values: Wq, Wk, Wv first; then Wf, W2, W1
+// the tail's weights, in values from the start of the region: Wf, W2, W1
 constexpr int SW_WF = 0, SW_W2 = D * LDA, SW_W1 = (D + DFF) * LDA;
 constexpr int SW_SIZE = SW_W1 + D * LDW1;
 constexpr int FFN_CHUNK = 64;
 constexpr int N_CHUNKS = DFF / FFN_CHUNK;
 
-static_assert(3 * D * LDA <= SW_SIZE, "the projections' weights fit the tail's region");
 static_assert(WARPS == H, "the in-block attention gives each warp one head");
 
-// Shared memory of the two tensor-core kernels: q (then ctx), k, v with L
-// padded to 16 rows of LDA values; the weight region; then floats: max‖k‖ per
-// head and (backward) the block's vector sums.
+// The region after q (then ctx), in values: k, v and the projections' Wq, Wk,
+// Wv while the projections and the attention run; after the attention k and v
+// are dead and the tail's Wf, W2, W1 take the region from its start.
+__host__ __device__ inline size_t region_values(int Lp) {
+  const size_t attention = 2 * (size_t)Lp * LDA + 3 * D * LDA;
+  return attention > SW_SIZE ? attention : SW_SIZE;
+}
+
+// Shared memory of the two tensor-core kernels: q with L padded to 16 rows of
+// LDA values; the region; then floats: max‖k‖ per head and (backward) the
+// block's vector sums.
 // ops/block_train.py::shared_memory_bytes is the Python twin, checked by the
 // wrapper before a launch: change both together.
 size_t rows_mma_smem(int L, bool backward) {
-  return (3 * (size_t)pad_tile(L) * LDA + SW_SIZE) * sizeof(bf16) +
+  const int Lp = pad_tile(L);
+  return ((size_t)Lp * LDA + region_values(Lp)) * sizeof(bf16) +
          (H + (backward ? N_ROW_VECS : 0)) * sizeof(float);
 }
 
@@ -684,8 +693,9 @@ __device__ __forceinline__ void rows_mma_body(const bf16* __restrict__ x,
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + (size_t)Lp * LDA;
   bf16* sV = sK + (size_t)Lp * LDA;
-  bf16* sW = sV + (size_t)Lp * LDA;
-  float* sKn = reinterpret_cast<float*>(sW + SW_SIZE);
+  bf16* sWp = sV + (size_t)Lp * LDA;  // Wq, Wk, Wv
+  bf16* sW = sK;                      // Wf, W2, W1 once k and v are dead
+  float* sKn = reinterpret_cast<float*>(sK + region_values(Lp));
   float* sVec = sKn + H;  // N_ROW_VECS sums, from V_BF on (backward)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -694,25 +704,23 @@ __device__ __forceinline__ void rows_mma_body(const bf16* __restrict__ x,
   const bf16* xb = x + base;
 
   // ---- q, k, v = cast(x W + b), all Lp rows
-  stage_matrix(sW, LDA, w.wq, D, D, tid);
-  stage_matrix(sW + D * LDA, LDA, w.wk, D, D, tid);
-  stage_matrix(sW + 2 * D * LDA, LDA, w.wv, D, D, tid);
+  stage_matrix(sWp, LDA, w.wq, D, D, tid);
+  stage_matrix(sWp + D * LDA, LDA, w.wk, D, D, tid);
+  stage_matrix(sWp + 2 * D * LDA, LDA, w.wv, D, D, tid);
   __syncthreads();
   for (int slab = warp * TILE; slab < Lp; slab += WARPS * TILE) {
     const SlabLane s(slab, L, lane);
     uint32_t xp[8][2], xa[4][4];
     load_packed(xp, xb, D, s);
     pack_a(xa, xp);
-    project_slab(sQ, sW, w.bq, xa, s, lane);
-    project_slab(sK, sW + D * LDA, w.bk, xa, s, lane);
-    project_slab(sV, sW + 2 * D * LDA, w.bv, xa, s, lane);
+    project_slab(sQ, sWp, w.bq, xa, s, lane);
+    project_slab(sK, sWp + D * LDA, w.bk, xa, s, lane);
+    project_slab(sV, sWp + 2 * D * LDA, w.bv, xa, s, lane);
   }
   __syncthreads();
 
-  // ---- the tail's weights take the region over; q, k, v to the workspace
-  stage_matrix(sW + SW_WF, LDA, w.wf, D, D, tid);
-  stage_matrix(sW + SW_W2, LDA, w.w2, DFF, D, tid);
-  stage_matrix(sW + SW_W1, LDW1, w.w1, D, DFF, tid);
+  // ---- q, k, v to the workspace, rows striped over all warps: every copy of
+  // a q row is done before the attention overwrites it with ctx
   if constexpr (BWD) {
     for (int i = tid; i < L * (D / DK); i += THREADS) {
       const int r = i / (D / DK), c = (i - r * (D / DK)) * DK;
@@ -720,6 +728,7 @@ __device__ __forceinline__ void rows_mma_body(const bf16* __restrict__ x,
       copy8(ws.k + base + r * D + c, sK + r * LDA + c);
       copy8(ws.v + base + r * D + c, sV + r * LDA + c);
     }
+    __syncthreads();
   }
 
   // ---- ctx over q, head by head
@@ -758,6 +767,12 @@ __device__ __forceinline__ void rows_mma_body(const bf16* __restrict__ x,
   }
   __syncthreads();
 #endif
+
+  // ---- the tail's weights over k and v, which no warp reads any more
+  stage_matrix(sW + SW_WF, LDA, w.wf, D, D, tid);
+  stage_matrix(sW + SW_W2, LDA, w.w2, DFF, D, tid);
+  stage_matrix(sW + SW_W1, LDW1, w.w1, D, DFF, tid);
+  __syncthreads();
 
   // ---- the tail (and the walk back), slab by slab
   // this lane's share of the vector gradients: columns 8g + c, c + 1 of each

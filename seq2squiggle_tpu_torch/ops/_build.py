@@ -152,12 +152,13 @@ def load() -> ctypes.CDLL:
         return _LIB
 
 
-def check_shared_memory(kernel: str, L: int, dtype, need) -> None:
+def check_shared_memory(kernel: str, L: int, dtype, need, hint: str = "") -> None:
     """Refuse, before any launch, a sequence whose per-block working set does
     not fit in shared memory. `need(L)` is the kernel's dynamic shared memory
     in bytes for length L (the Python twin of the formula in its .cu file; it
     grows with L). Raises a ValueError naming L, the dtype, the bytes and the
-    largest L that fits. It touches no device: on the CPU it checks as well."""
+    largest L that fits, then `hint` (the way out, where there is one). It
+    touches no device: on the CPU it checks as well."""
     n_bytes = need(L)
     if n_bytes <= SHARED_MEMORY_MAX:
         return
@@ -171,7 +172,8 @@ def check_shared_memory(kernel: str, L: int, dtype, need) -> None:
     raise ValueError(
         f"{kernel}: a sequence of L = {L} in {str(dtype).replace('torch.', '')} needs "
         f"{n_bytes} bytes of shared memory per thread block, more than the "
-        f"{SHARED_MEMORY_MAX} an H100 gives one; the largest L that fits is {fits}")
+        f"{SHARED_MEMORY_MAX} an H100 gives one; the largest L that fits is {fits}"
+        + (f" ({hint})" if hint else ""))
 
 
 def error_string(code: int) -> str:

@@ -41,10 +41,11 @@ bit-equal from run to run. In bfloat16 every matrix product runs on the
 tensor cores (`mma.sync`): a warp owns a 16-row slab of positions and the
 thread block stages its weights in shared memory once; float32 (TF32 stays
 off) runs as f32 FMA loops on the CUDA cores, a warp per position. A sequence
-too long for the per-batch-row kernels' shared memory (bf16: L > 352 forward,
-L > 336 backward, all of Wf, W1 and W2 sitting beside q, k, v; f32: L > 289
-forward, L > 283 backward) is refused with a ValueError before any launch
-(`shared_memory_bytes`).
+too long for the per-batch-row kernels' shared memory (bf16: L > 464 in both
+directions, q, k, v sitting beside Wq, Wk and Wv; f32: L > 289 forward,
+L > 283 backward) is refused with a ValueError before any launch
+(`shared_memory_bytes`) that names `pallas_train: core`, the rung that takes
+longer sequences.
 """
 
 from __future__ import annotations
@@ -221,24 +222,29 @@ def _check(x, weights, s_a, s_f, n_head: int, g=None) -> None:
                              f"masters); got {tuple(w.shape)} {w.dtype} on {w.device}")
 
 
-# The weight region of the bfloat16 kernels' shared memory, in bytes: Wf and W2
-# in rows of 64 + 8 values, W1 in rows of 256 + 8 (Wq, Wk, Wv sit there first).
+# The bfloat16 kernels' weights in shared memory, in bytes: the tail's Wf and
+# W2 in rows of 64 + 8 values and W1 in rows of 256 + 8; the projections' Wq,
+# Wk, Wv in rows of 64 + 8.
 _ROW_PAD = 8
-_WEIGHT_REGION = 2 * ((D_MODEL + D_FF) * (D_MODEL + _ROW_PAD) + D_MODEL * (D_FF + _ROW_PAD))
+_TAIL_WEIGHTS = 2 * ((D_MODEL + D_FF) * (D_MODEL + _ROW_PAD) + D_MODEL * (D_FF + _ROW_PAD))
+_PROJECTION_WEIGHTS = 2 * 3 * D_MODEL * (D_MODEL + _ROW_PAD)
 
 
 def shared_memory_bytes(L: int, dtype: torch.dtype, backward: bool) -> int:
     """Dynamic shared memory of one thread block of the per-batch-row kernels:
     the Python twin of rows_mma_smem (bfloat16) and row_kernel_smem (float32)
-    in csrc/block_train.cu. bfloat16: q, k, v with L padded to 16-row slabs,
-    rows of 64 + 8 values; the weight region; max‖k‖ per head and, backward,
-    the 640 vector sums. float32: q, k, v rows, per warp a 64- and a 256-wide
+    in csrc/block_train.cu. bfloat16: q with L padded to 16-row slabs, rows
+    of 64 + 8 values; a region that holds k, v and the projections' weights
+    and later, k and v being dead, the tail's weights; max‖k‖ per head and,
+    backward, the 640 vector sums. float32: q, k, v rows, per warp a 64- and a 256-wide
     scratch row and, backward, a second 64-wide one; then the same floats.
     The backward also runs the attention-core backward, which needs less."""
     n_floats = N_HEAD + ((6 * D_MODEL + D_FF) if backward else 0)
     if dtype == torch.bfloat16:
         padded = -(-L // 16) * 16
-        rows = 3 * padded * (D_MODEL + _ROW_PAD) * 2 + _WEIGHT_REGION + n_floats * 4
+        row = (D_MODEL + _ROW_PAD) * 2
+        region = max(2 * padded * row + _PROJECTION_WEIGHTS, _TAIL_WEIGHTS)
+        rows = padded * row + region + n_floats * 4
     else:
         size, warps = torch.finfo(dtype).bits // 8, 8
         rows = ((3 * L * D_MODEL + warps * (D_MODEL + D_FF + (D_MODEL if backward else 0))) * size
@@ -250,7 +256,8 @@ def check_length(L: int, dtype: torch.dtype, backward: bool) -> None:
     """Raise a ValueError if a batch row of length L does not fit."""
     _build.check_shared_memory(
         f"fused_block_train {'backward' if backward else 'forward'}", L, dtype,
-        lambda n: shared_memory_bytes(n, dtype, backward))
+        lambda n: shared_memory_bytes(n, dtype, backward),
+        hint="`pallas_train: core` trains longer sequences")
 
 
 def _ptr(t) -> ctypes.c_void_p:

@@ -14,9 +14,11 @@ the wrappers: the largest L with bytes(L) <= 232,448, bytes being
   attention core, f32    64 or 136 per row of L
   whole block, f32       forward 3·64·L·4 + 8·(64 + 256)·4 + 8·4
                          backward 3·64·L·4 + 8·(2·64 + 256)·4 + (8 + 640)·4
-  whole block, bf16      q, k, v in rows of 64 + 8 values, L padded to 16-row
-                         slabs: 3·72·ceil16(L)·2; the weight region (Wf and W2
-                         in rows of 72, W1 in rows of 264): 79,872; then 8·4
+  whole block, bf16      q in rows of 64 + 8 values, L padded to 16-row slabs:
+                         72·ceil16(L)·2; a region that holds first k, v and
+                         Wq, Wk, Wv (2·72·ceil16(L)·2 + 27,648) and then the
+                         tail's weights (Wf and W2 in rows of 72, W1 in rows
+                         of 264: 79,872), so the larger of the two; then 8·4
                          (forward) or (8 + 640)·4 (backward)
   fused block and pair   3·64·L·size + 8·256·size + 8·4
 """
@@ -57,9 +59,13 @@ CHECKS = {
                        "fused_fft_block_pair"),
 }
 
-# the bf16 whole-block kernels' weights in shared memory: (64 + 256) rows of 72
-# values (Wf, W2) and 64 rows of 264 (W1), 2 bytes each
-WEIGHT_REGION = ((64 + 256) * 72 + 64 * 264) * 2
+# the bf16 whole-block kernels' weights in shared memory, 2 bytes a value: the
+# tail's, (64 + 256) rows of 72 values (Wf, W2) and 64 rows of 264 (W1), and
+# the projections', 3·64 rows of 72
+TAIL_WEIGHTS = ((64 + 256) * 72 + 64 * 264) * 2
+PROJECTION_WEIGHTS = 3 * 64 * 72 * 2
+# ... and the whole-block kernels' way out, named after the ceiling
+HINT = " (`pallas_train: core` trains longer sequences)"
 
 # (wrapper, dtype) -> (the largest L that fits, its bytes)
 CEILINGS = [
@@ -67,9 +73,9 @@ CEILINGS = [
     ("core_fwd", F32, 3632, 64 * 3632),
     ("core_bwd", BF16, 3216, 72 * 3216),
     ("core_bwd", F32, 1709, 136 * 1709),
-    ("block_fwd", BF16, 352, 3 * 72 * 352 * 2 + WEIGHT_REGION + 32),
+    ("block_fwd", BF16, 464, 3 * 72 * 464 * 2 + PROJECTION_WEIGHTS + 32),
     ("block_fwd", F32, 289, 192 * 289 * 4 + 8 * 320 * 4 + 32),
-    ("block_bwd", BF16, 336, 3 * 72 * 336 * 2 + WEIGHT_REGION + 648 * 4),
+    ("block_bwd", BF16, 464, 3 * 72 * 464 * 2 + PROJECTION_WEIGHTS + 648 * 4),
     ("block_bwd", F32, 283, 192 * 283 * 4 + 8 * 384 * 4 + 648 * 4),
     ("fft_block", BF16, 594, 192 * 594 * 2 + 8 * 256 * 2 + 32),
     ("fft_block", F32, 291, 192 * 291 * 4 + 8 * 256 * 4 + 32),
@@ -92,7 +98,8 @@ def test_ceiling_and_message(wrapper, dtype, ceiling, n_bytes):
         assert str(err.value) == (
             f"{name}: a sequence of L = {too_long} in {str(dtype)[6:]} needs "
             f"{need(too_long, dtype)} bytes of shared memory per thread block, more than the "
-            f"{LIMIT} an H100 gives one; the largest L that fits is {ceiling}")
+            f"{LIMIT} an H100 gives one; the largest L that fits is {ceiling}"
+            + (HINT if wrapper.startswith("block_") else ""))
         assert need(too_long, dtype) > LIMIT
 
 
@@ -103,26 +110,28 @@ def test_f32_whole_block_backward_takes_283_and_refuses_284():
 
 
 def test_bf16_whole_block_fits_the_training_length_in_both_directions():
-    """L = 250 (padded to 256 rows) with all of Wf, W1 and W2 beside q, k, v."""
-    assert WEIGHT_REGION == 79_872
-    assert bt.shared_memory_bytes(250, BF16, False) == 3 * 72 * 256 * 2 + 79_872 + 32 == 190_496
-    assert bt.shared_memory_bytes(250, BF16, True) == 190_496 + 640 * 4 <= LIMIT
+    """L = 250 (padded to 256 rows): q, k, v and Wq, Wk, Wv need more than q
+    and the tail's weights, and set the size."""
+    assert TAIL_WEIGHTS == 79_872 and PROJECTION_WEIGHTS == 27_648
+    assert 2 * 72 * 256 * 2 + PROJECTION_WEIGHTS > TAIL_WEIGHTS
+    assert bt.shared_memory_bytes(250, BF16, False) == 3 * 72 * 256 * 2 + 27_648 + 32 == 138_272
+    assert bt.shared_memory_bytes(250, BF16, True) == 138_272 + 640 * 4 <= LIMIT
     bt.check_length(250, BF16, backward=False)
     bt.check_length(250, BF16, backward=True)
 
 
 def test_bf16_whole_block_ceiling_moves_in_slabs_of_16():
-    """337..352 need the same: the forward takes them, the backward none."""
+    """449..464 need the same, and both directions take them; a short row
+    needs q and the tail's weights."""
     for backward in (False, True):
-        assert (bt.shared_memory_bytes(337, BF16, backward)
-                == bt.shared_memory_bytes(352, BF16, backward))
+        assert (bt.shared_memory_bytes(449, BF16, backward)
+                == bt.shared_memory_bytes(464, BF16, backward))
         assert (bt.shared_memory_bytes(1, BF16, backward)
-                == bt.shared_memory_bytes(16, BF16, backward))
-    bt.check_length(352, BF16, backward=False)
-    with pytest.raises(ValueError, match="largest L that fits is 352"):
-        bt.check_length(353, BF16, backward=False)
-    with pytest.raises(ValueError, match="largest L that fits is 336"):
-        bt.check_length(337, BF16, backward=True)
+                == bt.shared_memory_bytes(16, BF16, backward)
+                == 72 * 16 * 2 + TAIL_WEIGHTS + (648 * 4 if backward else 32))
+        bt.check_length(464, BF16, backward=backward)
+        with pytest.raises(ValueError, match="largest L that fits is 464"):
+            bt.check_length(465, BF16, backward=backward)
 
 
 def test_bf16_core_ceiling_moves_in_tiles_of_16():
