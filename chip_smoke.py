@@ -9,10 +9,14 @@ Phases (any failure raises and the script exits non-zero):
      the kernel build from csrc/ (one nvcc per source, sm_90a) with its time;
   2. fused block vs plain: the hand-written fused FFT-block kernel against
      its plain PyTorch version on the same inputs, at the predict path's
-     shapes (1024 x 16 and 1024 x 250, d_model 64) plus a ragged batch of 3,
-     in bf16 (<= 4 bf16 ULPs of max|plain|) and f32 (rtol 1e-4, atol 1e-5),
-     and the Cauchy–Schwarz underflow input (finite output); median times of
-     both with CUDA events after warm-up;
+     shapes (1024 x 16 and 1024 x 250, d_model 64), at batch 3 at L = 16,
+     250 and the slab edges of EDGE_LENGTHS in both softmax forms, and at
+     batch 16 at each dtype's ceiling (bf16 464, f32 291), in bf16 (<= 4 bf16
+     ULPs of max(1, max|plain|)) and f32 (rtol 1e-4, atol 1e-5), and the
+     Cauchy–Schwarz underflow input (finite output); median times of both
+     with CUDA events after warm-up; sha256 digests of the f32 fused block
+     and pair outputs and of the bf16 whole-block training kernels' outputs
+     (to compare two trees: `python3 chip_smoke.py --digests TREE`);
   3. whole predict step: predict_step in f32 on the GPU against the same step
      on the CPU (counts equal on >= 99.9 % of rows, samples within 1 count on
      all but <= 0.1 % of those rows), then the bf16 step through the kernel
@@ -76,19 +80,22 @@ Phases (any failure raises and the script exits non-zero):
      running exactly the third epoch;
  11. pair and `packed` vs plain: the two-block kernel against its plain
      version (bars of phase 2) and against two one-block launches (bit-equal)
-     at 1024 x 250 and a ragged (3, 37), bf16 and f32, both softmax forms (f32
-     at L = 250 does not fit four buffers in shared memory and stages the
-     activation between the blocks through the output rows, in the same
-     launch); the one-block kernel at `packed=False`, L = 250 and
-     `packed=True`, L = 16 against plain; the underflow input finite through
-     the pair; median times of the pair, of two one-block launches and of the
-     plain version;
+     at 1024 x 250, a ragged (3, 37) and, at batch 16, on both sides of the
+     length past which the activation between the blocks no longer fits in
+     shared memory and is staged through the output rows in the same launch
+     (bf16 352 / 353, f32 218 / 219) and at the ceiling (bf16 464, f32 291),
+     bf16 and f32, both softmax forms; the one-block kernel at
+     `packed=False`, L = 250 and `packed=True`, L = 16 against plain; the
+     underflow input finite through the pair; median times of the pair, of
+     two one-block launches and of the plain version;
  12. profiling variants vs plain: every variant (a, b, c, d) and stage (proj
      ... full) of ops/fft_block_variants.py at (2048, 250, 64) bf16 and a
      ragged (3, 37) f32 against its plain version (bars of phase 2; the
      stages' f32 atol scaled by max(1, max|plain|), their sinks being
-     unnormalised sums), c bit-equal to b and b to the fused block's exact
-     form; then scripts/profile_torch_block_variants.py's interleaved timing
+     unnormalised sums), c bit-equal to b, b bit-equal to the fused block's
+     exact form in f32 (in bf16 the block runs on the tensor cores and both
+     are held against plain); then scripts/profile_torch_block_variants.py's
+     interleaved timing
      (2 rounds), launches counted, the stage differences printed;
  13. predict main path at `pallas_pair: true`: phase 4's run with that knob;
      per batch 2 one-block launches (the encoder) and 1 pair launch, the
@@ -129,6 +136,7 @@ VALID_STEPS = 2
 SEED = 7
 CORE_LENGTHS = (1, 15, 16, 17, 37, 250, 256, 283)  # phase 5; 250 at the train batch
 BLOCK_LENGTHS = (1, 15, 16, 17, 37, 250)  # phase 8; 250 at the train batch
+EDGE_LENGTHS = (1, 15, 16, 17, 31, 32, 33, 37)  # phase 2: 16-row slabs, packed_default
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type.
 PEAK_BYTES = 3.35e12
@@ -255,6 +263,30 @@ def underflow_input(gen, L: int = 250) -> torch.Tensor:
     return x.expand(2, L, 64).contiguous()
 
 
+def ceiling(dtype) -> int:
+    """The longest L the fused block takes in `dtype` (its shared memory)."""
+    from seq2squiggle_tpu_torch.ops import _build
+    from seq2squiggle_tpu_torch.ops import fft_block as fb
+
+    fits = 16
+    while fb.shared_memory_bytes(fits + 1, dtype) <= _build.SHARED_MEMORY_MAX:
+        fits += 1
+    return fits
+
+
+def hold_block(what, got, ref, dtype) -> float:
+    """A fused-block output against its plain version: finite; bf16 within 4
+    bf16 ULPs of max(1, max|plain|), f32 rtol 1e-4 / atol 1e-5. Returns
+    max|err|."""
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    if dtype == torch.bfloat16:
+        check(err <= bf16_tol(ref), f"{what}: err {err} > {bf16_tol(ref)}")
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    return err
+
+
 def phase_kernel(params_by_dtype, dev):
     from seq2squiggle_tpu_torch.ops.fft_block import (
         fused_fft_block, fused_fft_block_reference,
@@ -264,30 +296,78 @@ def phase_kernel(params_by_dtype, dev):
     worst_bf16 = 0.0
     times = {}
     for dtype, params in params_by_dtype.items():
+        name = str(dtype)[6:]
         block = params["decoder"]["blocks"][0]
         for B, L in ((BATCH, 16), (BATCH, 250), (3, 16), (3, 250)):
             x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
             got = fused_fft_block(x, block, 8)
             torch.cuda.synchronize()
             ref = fused_fft_block_reference(x, block, 8)
-            err = (got.float() - ref.float()).abs().max().item()
-            check(bool(torch.isfinite(got).all()), f"non-finite kernel output {dtype} {B}x{L}")
-            if dtype == torch.bfloat16:
-                check(err <= bf16_tol(ref), f"bf16 {B}x{L}: err {err} > {bf16_tol(ref)}")
-                worst_bf16 = max(worst_bf16, err) if B == BATCH else worst_bf16
-            else:
-                torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
-            msg = f"kernel vs plain {str(dtype)[6:]:8s} B={B:4d} L={L:3d}: max|err| {err:.3g}"
+            err = hold_block(f"{name} {B}x{L}", got, ref, dtype)
+            if dtype == torch.bfloat16 and B == BATCH:
+                worst_bf16 = max(worst_bf16, err)
+            msg = f"kernel vs plain {name:8s} B={B:4d} L={L:3d}: max|err| {err:.3g}"
             if B == BATCH:
                 k_ms = median_ms(lambda: fused_fft_block(x, block, 8))
                 p_ms = median_ms(lambda: fused_fft_block_reference(x, block, 8))
                 times[(dtype, L)] = (k_ms, p_ms)
                 msg += f", kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
             log(msg)
+        top = ceiling(dtype)
+        errs = []
+        for B, L in [(3, L) for L in EDGE_LENGTHS] + [(16, top)]:
+            x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
+            for packed in (False, True):
+                got = fused_fft_block(x, block, 8, packed=packed)
+                torch.cuda.synchronize()
+                ref = fused_fft_block_reference(x, block, 8, packed)
+                errs.append(hold_block(f"{name} {B}x{L} packed={packed}", got, ref, dtype))
+        log(f"kernel vs plain {name} at batch 3, L = {', '.join(map(str, EDGE_LENGTHS))}, and "
+            f"batch 16 at the ceiling L = {top}, both softmax forms: max|err| {max(errs):.3g}")
         out = fused_fft_block(underflow_input(gen).to(dev, dtype), block, 8)
         check(bool(torch.isfinite(out).all()), f"underflow input gave non-finite {dtype}")
-        log(f"underflow input {str(dtype)[6:]}: finite")
+        log(f"underflow input {name}: finite")
     return worst_bf16, times
+
+
+def digests(dev) -> dict:
+    """sha256 over outputs on inputs from SEED: the f32 fused block (both
+    softmax forms) and pair (both forms) at (3, 37) and (1024, 250) with the
+    committed R10 decoder blocks, and the bf16 whole-block training kernels'
+    forward output, gx and the 16 weight gradients at (3, 37) and (512, 250)
+    with dropout scales. Two trees whose kernels agree bit for bit print the
+    same digests."""
+    import hashlib
+
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.models.weights import load_checkpoint
+    from seq2squiggle_tpu_torch.ops import block_train as bt
+    from seq2squiggle_tpu_torch.ops import fft_block as fb
+
+    gen = torch.Generator().manual_seed(SEED)
+    host, _ = load_checkpoint(str(R10))
+    b0, b1 = fft_model.to_device(host, dev, torch.float32)["decoder"]["blocks"]
+    fused = hashlib.sha256()
+    for B, L in ((3, 37), (BATCH, 250)):
+        x = torch.randn(B, L, 64, generator=gen).to(dev)
+        for packed in (False, True):
+            for out in (fb.fused_fft_block(x, b0, 8, packed), fb.fused_fft_block_pair(
+                    x, b0, b1, 8, packed)):
+                fused.update(out.cpu().numpy().tobytes())
+    block = fft_model.init_params(load_config(None), prng.key(SEED))["decoder"]["blocks"][0]
+    weights = [w.to(dev).contiguous() for w in bt.block_weights(block)]
+    train = hashlib.sha256()
+    for B, L in ((3, 37), (TRAIN_BATCH, 250)):
+        x, g = (torch.randn(B, L, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+        scales = [bt.make_dropout_scales(k, 0.2, x.shape, torch.bfloat16)
+                  for k in prng.split(prng.key(B, dev))]
+        gx, gws = bt.fused_block_train_backward(x, weights, *scales, g, 8)
+        for t in (bt.fused_block_train_forward(x, weights, *scales, 8), gx, *gws):
+            train.update(t.float().cpu().numpy().tobytes())
+    return {"fused_block_and_pair_f32": fused.hexdigest(),
+            "block_train_bf16": train.hexdigest()}
 
 
 def _batch(B, seed):
@@ -456,21 +536,15 @@ def phase_pair(params_by_dtype, dev):
 
     gen = torch.Generator().manual_seed(SEED)
     result = {}
-
-    def hold(what, got, ref, dtype):
-        err = (got.float() - ref.float()).abs().max().item()
-        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-        if dtype == torch.bfloat16:
-            check(err <= bf16_tol(ref), f"{what}: err {err} > {bf16_tol(ref)}")
-        else:
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
-        return err
-
     for dtype, params in params_by_dtype.items():
         name = str(dtype)[6:]
         b0, b1 = params["decoder"]["blocks"]
-        for B, L in ((3, 37), (BATCH, 250)):
+        on_chip = max(L for L in range(1, 600) if fb.pair_keeps_activation_on_chip(L, dtype))
+        for B, L in ((3, 37), (BATCH, 250), (16, on_chip), (16, on_chip + 1),
+                     (16, ceiling(dtype))):
             x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
+            where = ("in shared memory" if fb.pair_keeps_activation_on_chip(L, dtype)
+                     else "staged through the output rows")
             for packed in (False, True):
                 what = f"pair {name} {B}x{L} packed={packed}"
                 pair = fb.fused_fft_block_pair(x, b0, b1, 8, packed=packed)
@@ -478,9 +552,10 @@ def phase_pair(params_by_dtype, dev):
                                          packed=packed)
                 torch.cuda.synchronize()
                 check(torch.equal(pair, two), f"{what}: not bit-equal to two one-block launches")
-                err = hold(what, pair, fb.fused_fft_block_pair_reference(x, b0, b1, 8, packed),
-                           dtype)
-                msg = f"{what}: bit-equal to two launches, vs plain max|err| {err:.3g}"
+                err = hold_block(what, pair,
+                                 fb.fused_fft_block_pair_reference(x, b0, b1, 8, packed), dtype)
+                msg = (f"{what}: activation {where}, bit-equal to two launches, vs plain "
+                       f"max|err| {err:.3g}")
                 if B == BATCH and packed and dtype == torch.bfloat16:
                     times = {
                         "pair": median_ms(lambda: fb.fused_fft_block_pair(x, b0, b1, 8)),
@@ -498,8 +573,9 @@ def phase_pair(params_by_dtype, dev):
         for B, L, packed in ((BATCH, 250, False), (BATCH, 16, True), (3, 250, False),
                              (3, 16, True)):
             x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
-            err = hold(f"packed={packed} {name} {B}x{L}", fb.fused_fft_block(x, b0, 8, packed),
-                       fb.fused_fft_block_reference(x, b0, 8, packed), dtype)
+            err = hold_block(f"packed={packed} {name} {B}x{L}",
+                             fb.fused_fft_block(x, b0, 8, packed),
+                             fb.fused_fft_block_reference(x, b0, 8, packed), dtype)
             log(f"one block {name} B={B:4d} L={L:3d} packed={packed}: vs plain max|err| {err:.3g}")
         out = fb.fused_fft_block_pair(underflow_input(gen).to(dev, dtype), b0, b1, 8, packed=True)
         check(bool(torch.isfinite(out).all()), f"pair: underflow input gave non-finite {name}")
@@ -527,8 +603,17 @@ def phase_variants(params_by_dtype, dev):
         x = (torch.randn(B, L, 64, generator=gen) * 0.5).to(dev, dtype)
         b = tv.fused_abc(x, block, 8, "b")
         check(torch.equal(tv.fused_abc(x, block, 8, "c"), b), f"variant c != b ({name})")
-        check(torch.equal(fb.fused_fft_block(x, block, 8, packed=False), b),
-              f"variant b != the fused block's exact form ({name})")
+        exact = fb.fused_fft_block(x, block, 8, packed=False)
+        if dtype == torch.float32:  # both on the CUDA-core body
+            check(torch.equal(exact, b), f"variant b != the fused block's exact form ({name})")
+            same = "b to the fused block's exact form"
+        else:  # the block on the tensor cores, b on the CUDA cores: both against plain
+            ref = fb.fused_fft_block_reference(x, block, 8, packed=False)
+            hold_block(f"fused block exact form {name} {B}x{L}", exact, ref, dtype)
+            hold_block(f"variant b {name} {B}x{L}", b, ref, dtype)
+            same = "b and the fused block's exact form both within the bar of plain"
+            del ref
+        del exact
         errs = []
         for group, choice, fn, ref_fn in calls:
             got, ref = fn(x, block, 8, choice), ref_fn(x, block, 8, choice)
@@ -550,8 +635,8 @@ def phase_variants(params_by_dtype, dev):
                 times[group] = (median_ms(lambda: fn(x, block, 8, choice)),
                                 median_ms(lambda: ref_fn(x, block, 8, choice), iters=5))
             del got, ref
-        log(f"variants vs plain {name} {B}x{L}: c bit-equal to b, b to the fused block's exact "
-            f"form; max|err| " + ", ".join(errs))
+        log(f"variants vs plain {name} {B}x{L}: c bit-equal to b, {same}; max|err| "
+            + ", ".join(errs))
     tv.launches_abc = tv.launches_d = tv.launches_parts = 0
     prof = script.profile(rounds=2)
     launches = {"abc": tv.launches_abc, "d": tv.launches_d, "parts": tv.launches_parts}
@@ -995,10 +1080,12 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false",
               file=sys.stderr)
         return 3
-    if len(sys.argv) == 3 and sys.argv[1] == "--core-f32-digest":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--core-f32-digest", "--digests"):
         # the port as it is in another tree (its kernels build there), this script's inputs
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
-        print(core_f32_digest(torch.device("cuda")))
+        dev = torch.device("cuda")
+        print(core_f32_digest(dev) if sys.argv[1] == "--core-f32-digest"
+              else json.dumps(digests(dev)))
         return 0
     sys.path.insert(0, str(ROOT))
     from seq2squiggle_tpu_torch.device import resolve_device
@@ -1012,6 +1099,7 @@ def main() -> int:
     params = {dt: fft_model.to_device(host_params, dev, dt)
               for dt in (torch.bfloat16, torch.float32)}
     worst_bf16, times = phase_kernel(params, dev)
+    log(f"digests: {json.dumps(digests(dev))}")
     phase_step(host_params, dev)
     launches, _, recs = phase_main_path(dev, pair=False)
     core = phase_core_kernels(dev)[torch.bfloat16]

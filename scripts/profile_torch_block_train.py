@@ -1,7 +1,7 @@
 """Time the whole-block training kernels of the PyTorch port on one GPU: the
 forward, the backward and each of the backward's six launches, back to back,
-with the two compile-time switches of csrc/block_train.cu turned the other
-way beside them.
+with the compile-time switch of csrc/block_train.cu turned the other way
+beside them.
 
     python scripts/profile_torch_block_train.py [--rounds 4] [--batch 512]
     python scripts/profile_torch_block_train.py --whole [--tree CHECKOUT]
@@ -11,15 +11,12 @@ csrc/block_train.cu is built with csrc/attn_core.cu (its backward runs the
 attention-core backward as one stage) once per variant, all nvcc runs started
 together, into build/torch_kernels/variants/:
 
-  as built                 the two files as the package builds them: bfloat16
-                           on the tensor cores, a warp per 16-row slab, the
-                           weights staged in shared memory once per block
-  attention on CUDA cores  -DS2S_BLOCK_TRAIN_ATTN_CUDA_CORES=1: the same, but
-                           the in-block attention as one thread per (head,
-                           query) on the CUDA cores
-  CUDA cores               -DS2S_BLOCK_TRAIN_CUDA_CORES=1: bfloat16 through the
-                           float32 path's kernels (a warp per position, the
-                           weights streamed from L1/L2 for every position)
+  as built    the two files as the package builds them: bfloat16 on the
+              tensor cores, a warp per 16-row slab, the weights staged in
+              shared memory once per block (csrc/block_mma.cuh's body)
+  CUDA cores  -DS2S_BLOCK_TRAIN_CUDA_CORES=1: bfloat16 through the float32
+              path's kernels (a warp per position, the weights streamed from
+              L1/L2 for every position)
 
 At (batch, 250, 64) bfloat16 with dropout scales (rate 0.2), inputs standard
 normal from numpy seed 0, the block's weights the model's init from seed 7,
@@ -66,11 +63,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-VARIANTS = {
-    "as built": [],
-    "attention on CUDA cores": ["-DS2S_BLOCK_TRAIN_ATTN_CUDA_CORES=1"],
-    "CUDA cores": ["-DS2S_BLOCK_TRAIN_CUDA_CORES=1"],
-}
+VARIANTS = {"as built": [], "CUDA cores": ["-DS2S_BLOCK_TRAIN_CUDA_CORES=1"]}
 N_HEAD = 8
 RATE = 0.2
 LAUNCHES = 20  # per timed reading

@@ -48,6 +48,7 @@ import io
 import json
 import pathlib
 import pstats
+import re
 import subprocess
 import sys
 import tempfile
@@ -104,8 +105,11 @@ def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False) 
     calls = {e.key: e.count for e in avg}
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    block = [e for e in device if "fft_block_kernel" in e.name]
-    pairs = [e for e in device if "fft_block_pair_kernel" in e.name]
+    # the one-block and pair kernels of csrc/fft_block.cu: fft_block_kernel<T> and
+    # fft_block_pair_kernel<T> (f32), fft_block_mma_kernel<EXACT> and
+    # fft_block_pair_mma_kernel<EXACT> (bf16)
+    block = [e for e in device if re.search(r"fft_block(_mma)?_kernel", e.name)]
+    pairs = [e for e in device if re.search(r"fft_block_pair(_mma)?_kernel", e.name)]
     busy_s = _union_us((e.time_range.start, e.time_range.end) for e in device) / 1e6
     sort = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
             else "self_cuda_time_total")

@@ -23,19 +23,21 @@
 // Bound: operations (20.7 GFLOP forward, about 62 backward at B = 512,
 // L = 250, against four or five tensors of 16 MB).
 //
-// bf16 runs on the tensor cores (`mma.sync` through row_mma.cuh; the kernels
-// *_mma_kernel below, described where they start): a warp owns a 16-row slab
-// of positions, every thread block stages its weights in shared memory once,
-// the 256-wide hidden layer stays in registers, and the in-block attention is
-// the attention core's sweep. Measured at (512, 250, 64) with dropout scales on
-// an NVIDIA H100 80GB HBM3 at 700 W (scripts/profile_torch_block_train.py,
-// launches back to back): forward 0.25 ms, backward 1.20 ms (rows 0.62, the
-// attention-core backward 0.35, wgrad 0.11, input 0.09), where the f32 path's
-// design below, built for bf16, takes 2.29 and 10.66 ms. PERF.md (section 6,
+// bf16 runs on the tensor cores (`mma.sync`; the kernels *_mma_kernel below,
+// whose forward is block_mma.cuh's body, shared with the inference block): a
+// warp owns a 16-row slab of positions, every thread block stages its weights
+// in shared memory once, the 256-wide hidden layer stays in registers, and
+// the in-block attention is the attention core's sweep. Measured at
+// (512, 250, 64) with dropout scales on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/profile_torch_block_train.py, launches back to back): forward
+// 0.25 ms, backward 1.20 ms (rows 0.62, the attention-core backward 0.35,
+// wgrad 0.11, input 0.09), where the f32 path's design below, built for bf16,
+// takes 2.29 and 10.66 ms. PERF.md (section 6,
 // B3) has the rest. f32 has no tensor-core form with TF32 off and keeps the
 // CUDA-core kernels:
 //
-// Forward: one thread block per batch row, as fft_block.cu: q, k, v in shared
+// Forward: one thread block per batch row, as fft_block.cu's f32 kernels (the
+// same CUDA-core design in fft_block_body.cuh): q, k, v in shared
 // memory, scores recomputed per query and never stored, then fc + LN1 + FFN +
 // LN2 one row per warp.
 //
@@ -67,37 +69,25 @@
 // C interface (loaded with ctypes by ops/_build.py): each entry point returns
 // the first launch error of its stages (cudaGetLastError() after each).
 
-#include "row_mma.cuh"
+#include "block_mma.cuh"
 
 #include <type_traits>
 
-// Two compile-time switches, both 0 as the package builds this file;
-// scripts/profile_torch_block_train.py builds it with each set to 1 and times
-// the results beside the package's build, in one call on one card:
-//   S2S_BLOCK_TRAIN_CUDA_CORES       bf16 takes the f32 path's kernels (one
-//                                    warp per position on the CUDA cores,
-//                                    weights streamed from L1/L2 per position)
-//   S2S_BLOCK_TRAIN_ATTN_CUDA_CORES  the tensor-core bf16 kernels keep the
-//                                    in-block attention on the CUDA cores
-//                                    (one thread per (head, query))
+// A compile-time switch, 0 as the package builds this file;
+// scripts/profile_torch_block_train.py builds it with 1 and times the result
+// beside the package's build, in one call on one card:
+//   S2S_BLOCK_TRAIN_CUDA_CORES  bf16 takes the f32 path's kernels (one warp
+//                               per position on the CUDA cores, weights
+//                               streamed from L1/L2 per position)
 #ifndef S2S_BLOCK_TRAIN_CUDA_CORES
 #define S2S_BLOCK_TRAIN_CUDA_CORES 0
-#endif
-#ifndef S2S_BLOCK_TRAIN_ATTN_CUDA_CORES
-#define S2S_BLOCK_TRAIN_ATTN_CUDA_CORES 0
 #endif
 
 namespace {
 
 using namespace s2s;
 
-constexpr int DFF = 256;  // FFN width
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr float LN_EPS = 1e-5f;
 constexpr int NPART = 64;  // partial sums per matrix-gradient entry
-
-static_assert(WARPS == H, "the k-norm reduction uses one warp per head");
 
 // Flat layout of the six matrices (rounded weights, partial sums, gradients).
 constexpr int N_MAT = 4 * D * D + 2 * D * DFF;
@@ -231,25 +221,24 @@ __device__ __forceinline__ void project_qkv(const T* __restrict__ xb, const Para
 // ctx = softmax(q kᵀ/√d_k) v with the Cauchy–Schwarz shift, one (head, query)
 // item per thread; ctx overwrites q in shared memory (q[t, h] is read only by
 // its own item) and goes to device memory too where gctx is given.
-// S: the values between two rows in shared memory.
-template <typename T, int S = D>
+template <typename T>
 __device__ __forceinline__ void attend_row(T* sQ, const T* sK, const T* sV, float* sKn,
                                            T* gctx, const int L, const float inv_temp,
                                            const int tid) {
   const int lane = tid & 31, warp = tid >> 5;
-  const float kn = warp_max_knorm<T, S>(sK + warp * DK, L, lane);
+  const float kn = warp_max_knorm<T, D>(sK + warp * DK, L, lane);
   if (lane == 0) sKn[warp] = kn;
   __syncthreads();
   for (int it = tid; it < H * L; it += THREADS) {
     const int h = it / L;
     const int t = it - h * L;
     float q[DK], num[DK], den, ctx[DK];
-    load8(sQ + t * S + h * DK, q);
-    attend_query<T, S>(q, sK + h * DK, sV + h * DK, L, inv_temp, false,
+    load8(sQ + t * D + h * DK, q);
+    attend_query<T, D>(q, sK + h * DK, sV + h * DK, L, inv_temp, false,
                        cs_shift(q, sKn[h], inv_temp), num, den);
 #pragma unroll
     for (int c = 0; c < DK; ++c) ctx[c] = __fdiv_rn(num[c], den);
-    store8(sQ + t * S + h * DK, ctx);
+    store8(sQ + t * D + h * DK, ctx);
     if (gctx != nullptr) store8(gctx + t * D + h * DK, ctx);
   }
   __syncthreads();
@@ -531,103 +520,25 @@ bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ s_a, const T* __r
 // ---- bf16 on the tensor cores: the forward and the backward's stage 2 -------
 //
 // One thread block per batch row as above, but a WARP owns a 16-row slab of
-// positions and every matrix product of the row stages is `mma.sync` over that
-// slab (row_mma.cuh) against weights that the thread block staged in shared
-// memory once: Wq, Wk, Wv for the projections beside k and v, then Wf, W1, W2
-// over k, v and those three for the tail. Nothing streams a weight matrix per
-// position.
-//   projections  x slab (A operands straight from device memory) · Wq, Wk, Wv;
-//                bias, cast, into shared memory (rows 144 bytes apart)
-//   attention    warp h takes head h: `attend_tile`, the attention core's
-//                sweep (16 queries over all keys, e on the fragment with
-//                ex2.approx); ctx overwrites q word for word
-//   tail         ctx·Wf, bias, ·s_a, + x, LN1 on the accumulator fragments
-//                (a row's 64 values lie 16 to a lane across a quad); the
-//                256-wide hidden layer in four chunks of 64 columns: pre =
-//                cast(h1)·W1[:, chunk], bias, relu, cast, and the packed
-//                fragment is the A operand of f2 += f1[chunk]·W2[chunk, :], so
-//                the hidden layer never leaves the registers; ·s_f, + h1, LN2
-//   walk back    (backward) the same way on the forward's copies of W2, W1, Wf
-//                read as g·Wᵀ (plain `ldmatrix`; the forward's a·W is the
-//                `.trans` load): gf2c·W2ᵀ per chunk under the relu mask (32
-//                bits a chunk a lane), gf1c[chunk]·W1ᵀ accumulated, LN1,
-//                goc·Wfᵀ. Every rounding point is where the f32 path has it.
-// Ragged L: slabs pad L to a multiple of 16. Padded rows hold finite values
-// (the biases), are never keys (`exp_block_rows` masks them), and add nothing:
-// their stores to the workspace and their terms of the vector gradients are
-// masked row by row (`SlabLane`). The vector gradients keep a fixed order:
-// rows of a slab by shuffles, a warp's slabs in order, warps in order.
+// positions and every matrix product is `mma.sync` over that slab against
+// weights staged in shared memory once per thread block: block_mma.cuh's
+// body, which the inference block (fft_block.cu) runs too, here with the
+// dropout scales (SCALES) and, for the backward, the workspace stores
+// (STORES). After LN2 the forward writes out; the backward walks back:
+//   walk back    on the forward's copies of W2, W1, Wf read as g·Wᵀ (plain
+//                `ldmatrix`; the forward's a·W is the `.trans` load):
+//                gf2c·W2ᵀ per chunk under the relu mask (32 bits a chunk a
+//                lane), gf1c[chunk]·W1ᵀ accumulated, LN1, goc·Wfᵀ. Every
+//                rounding point is where the f32 path has it.
+// The vector gradients keep a fixed order: rows of a slab by shuffles, a
+// warp's slabs in order, warps in order; padded rows add nothing (`SlabLane`).
 
-constexpr int LDA = D + 8;      // values between 64-wide rows in shared memory
-constexpr int LDW1 = DFF + 8;   // ... between W1's 256-wide rows
-// the tail's weights, in values from the start of the region: Wf, W2, W1
-constexpr int SW_WF = 0, SW_W2 = D * LDA, SW_W1 = (D + DFF) * LDA;
-constexpr int SW_SIZE = SW_W1 + D * LDW1;
-constexpr int FFN_CHUNK = 64;
-constexpr int N_CHUNKS = DFF / FFN_CHUNK;
-
-static_assert(WARPS == H, "the in-block attention gives each warp one head");
-
-// The region after q (then ctx), in values: k, v and the projections' Wq, Wk,
-// Wv while the projections and the attention run; after the attention k and v
-// are dead and the tail's Wf, W2, W1 take the region from its start.
-__host__ __device__ inline size_t region_values(int Lp) {
-  const size_t attention = 2 * (size_t)Lp * LDA + 3 * D * LDA;
-  return attention > SW_SIZE ? attention : SW_SIZE;
-}
-
-// Shared memory of the two tensor-core kernels: q with L padded to 16 rows of
-// LDA values; the region; then floats: max‖k‖ per head and (backward) the
-// block's vector sums.
+// Shared memory of the two tensor-core kernels: block_mma.cuh's body, then
+// (backward) the block's vector sums as floats.
 // ops/block_train.py::shared_memory_bytes is the Python twin, checked by the
 // wrapper before a launch: change both together.
 size_t rows_mma_smem(int L, bool backward) {
-  const int Lp = pad_tile(L);
-  return ((size_t)Lp * LDA + region_values(Lp)) * sizeof(bf16) +
-         (H + (backward ? N_ROW_VECS : 0)) * sizeof(float);
-}
-
-// A dense rows x cols matrix from device memory into shared memory, rows ld
-// values apart.
-__device__ __forceinline__ void stage_matrix(bf16* dst, int ld, const bf16* __restrict__ src,
-                                             int rows, int cols, int tid) {
-  const int per_row = cols / DK;
-  for (int i = tid; i < rows * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i - r * per_row) * DK;
-    copy8(dst + r * ld + c, src + r * cols + c);
-  }
-}
-
-__device__ __forceinline__ float half_f(uint32_t word, int i) {
-  return (i & 1) ? hi_f(word) : lo_f(word);
-}
-__device__ __forceinline__ float half_f(float2 v, int i) { return (i & 1) ? v.y : v.x; }
-
-// LayerNorm statistics of a slab in the accumulator layout, `ln_stats`'s
-// operations in its order: zhat, and 1/sigma of rows g and g + 8.
-__device__ __forceinline__ void ln_stats_slab(const float (&z)[8][4], float (&zh)[8][4],
-                                              float inv[2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sum = __fadd_rn(sum, __fadd_rn(z[j][2 * h], z[j][2 * h + 1]));
-    const float mean = __fdiv_rn(quad_sum(sum), (float)D);
-    float sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = __fsub_rn(z[j][2 * h + e], mean);
-        zh[j][2 * h + e] = d;
-        sq = __fadd_rn(sq, __fmul_rn(d, d));
-      }
-    inv[h] = rsqrtf(__fadd_rn(__fdiv_rn(quad_sum(sq), (float)D), LN_EPS));
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) zh[j][2 * h + e] = __fmul_rn(zh[j][2 * h + e], inv[h]);
-  }
+  return slab_smem_bytes(L) + (backward ? N_ROW_VECS : 0) * sizeof(float);
 }
 
 // Backward of y = zhat·scale + bias on a slab (`ln_backward`'s arithmetic).
@@ -659,324 +570,22 @@ __device__ __forceinline__ void ln_backward_slab(float (&gz)[8][4], const float 
   }
 }
 
-// cast(x W + b) of one slab into all 16 rows of dst (shared memory).
-__device__ __forceinline__ void project_slab(bf16* dst, const bf16* sWp, const float* bias,
-                                             const uint32_t (&xa)[4][4], const SlabLane& s,
-                                             int lane) {
-  float acc[8][4];
-  zero_acc(acc);
-  mma_a_w<4, 8, LDA>(acc, xa, sWp, lane);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 b = vec2(bias, j, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], half_f(b, i));
-  }
-  uint32_t p[8][2];
-  pack_acc(p, acc);
-  SlabLane all = s;
-  all.ok0 = all.ok1 = true;
-  store_packed(dst, LDA, p, all);
-}
-
-// BWD false: the forward kernel, writes out. BWD true: the backward's stage 2,
-// recomputes, walks back to gctx and fills the workspace.
-template <bool BWD>
-__device__ __forceinline__ void rows_mma_body(const bf16* __restrict__ x,
-                                              const bf16* __restrict__ s_a,
-                                              const bf16* __restrict__ s_f,
-                                              const bf16* __restrict__ g, bf16* __restrict__ out,
-                                              const Params<bf16>& w, const Workspace<bf16>& ws,
-                                              const int L, const float inv_temp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Lp = pad_tile(L);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + (size_t)Lp * LDA;
-  bf16* sV = sK + (size_t)Lp * LDA;
-  bf16* sWp = sV + (size_t)Lp * LDA;  // Wq, Wk, Wv
-  bf16* sW = sK;                      // Wf, W2, W1 once k and v are dead
-  float* sKn = reinterpret_cast<float*>(sK + region_values(Lp));
-  float* sVec = sKn + H;  // N_ROW_VECS sums, from V_BF on (backward)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t base = (size_t)blockIdx.x * L * D;
-  const size_t wide = (size_t)blockIdx.x * L * DFF;
-  const bf16* xb = x + base;
-
-  // ---- q, k, v = cast(x W + b), all Lp rows
-  stage_matrix(sWp, LDA, w.wq, D, D, tid);
-  stage_matrix(sWp + D * LDA, LDA, w.wk, D, D, tid);
-  stage_matrix(sWp + 2 * D * LDA, LDA, w.wv, D, D, tid);
-  __syncthreads();
-  for (int slab = warp * TILE; slab < Lp; slab += WARPS * TILE) {
-    const SlabLane s(slab, L, lane);
-    uint32_t xp[8][2], xa[4][4];
-    load_packed(xp, xb, D, s);
-    pack_a(xa, xp);
-    project_slab(sQ, sWp, w.bq, xa, s, lane);
-    project_slab(sK, sWp + D * LDA, w.bk, xa, s, lane);
-    project_slab(sV, sWp + 2 * D * LDA, w.bv, xa, s, lane);
-  }
-  __syncthreads();
-
-  // ---- q, k, v to the workspace, rows striped over all warps: every copy of
-  // a q row is done before the attention overwrites it with ctx
-  if constexpr (BWD) {
-    for (int i = tid; i < L * (D / DK); i += THREADS) {
-      const int r = i / (D / DK), c = (i - r * (D / DK)) * DK;
-      copy8(ws.q + base + r * D + c, sQ + r * LDA + c);
-      copy8(ws.k + base + r * D + c, sK + r * LDA + c);
-      copy8(ws.v + base + r * D + c, sV + r * LDA + c);
-    }
-    __syncthreads();
-  }
-
-  // ---- ctx over q, head by head
-#if S2S_BLOCK_TRAIN_ATTN_CUDA_CORES
-  attend_row<bf16, LDA>(sQ, sK, sV, sKn, BWD ? ws.ctx + base : nullptr, L, inv_temp, tid);
-#else
-  {
-    bf16* qh = sQ + warp * DK;
-    const bf16* kh = sK + warp * DK;
-    const bf16* vh = sV + warp * DK;
-    const float knorm = warp_max_knorm<bf16, LDA>(kh, L, lane);
-    const float scale2 = __fmul_rn(inv_temp, EXP_UNIT);
-    for (int q0 = 0; q0 < Lp; q0 += TILE) {
-      uint32_t qa[2];
-      load_a<LDA>(qa, qh, q0, lane);
-      const float sh0 = row_shift2(qa[0], knorm, inv_temp);
-      const float sh1 = row_shift2(qa[1], knorm, inv_temp);
-      float num[4], den[4];
-      attend_tile<LDA>(num, den, qa, kh, vh, L, Lp, lane, scale2, sh0, sh1);
-      const float d0 = fmaxf(den[0], DEN_MIN), d1 = fmaxf(den[2], DEN_MIN);
-      const uint32_t c0 = pack2(__fdiv_rn(num[0], d0), __fdiv_rn(num[1], d0));
-      const uint32_t c1 = pack2(__fdiv_rn(num[2], d1), __fdiv_rn(num[3], d1));
-      // the accumulator's layout is the A operand's: each lane overwrites the
-      // words of q it loaded
-      uint32_t* words =
-          reinterpret_cast<uint32_t*>(qh) + (q0 + (lane >> 2)) * (LDA / 2) + (lane & 3);
-      words[0] = c0;
-      words[8 * (LDA / 2)] = c1;
-      if constexpr (BWD) {
-        const SlabLane s(q0, L, lane);
-        bf16* o = ws.ctx + base + warp * DK + s.c;
-        if (s.ok0) *reinterpret_cast<uint32_t*>(o + (size_t)s.r0 * D) = c0;
-        if (s.ok1) *reinterpret_cast<uint32_t*>(o + (size_t)s.r1 * D) = c1;
-      }
-    }
-  }
-  __syncthreads();
-#endif
-
-  // ---- the tail's weights over k and v, which no warp reads any more
-  stage_matrix(sW + SW_WF, LDA, w.wf, D, D, tid);
-  stage_matrix(sW + SW_W2, LDA, w.w2, DFF, D, tid);
-  stage_matrix(sW + SW_W1, LDW1, w.w1, D, DFF, tid);
-  __syncthreads();
-
-  // ---- the tail (and the walk back), slab by slab
-  // this lane's share of the vector gradients: columns 8g + c, c + 1 of each
-  // 64-wide one (in the order of ROW_VECS) and of each chunk of b1
-  enum { A_BF, A_LN1S, A_LN1B, A_B2, A_LN2S, A_LN2B, N_ACC };
-  constexpr int ROW_VECS[N_ACC] = {V_BF, V_LN1S, V_LN1B, V_B2, V_LN2S, V_LN2B};
-  float acc[N_ACC][2] = {};
-  float a_b1[N_CHUNKS][2] = {};
-
-  for (int slab = warp * TILE; slab < Lp; slab += WARPS * TILE) {
-    const SlabLane s(slab, L, lane);
-
-    // z1 = (ctx Wf + bf)·s_a + x, then LN1
-    float z[8][4], zh1[8][4], inv1[2];
-    {
-      uint32_t ca[4][4];
-      load_a_slab<4, LDA>(ca, sQ, slab, lane);
-      zero_acc(z);
-      mma_a_w<4, 8, LDA>(z, ca, sW + SW_WF, lane);
-      uint32_t xp[8][2], sap[8][2];
-      load_packed(xp, xb, D, s);
-      if (s_a != nullptr) load_packed(sap, s_a + base, D, s);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 b = vec2(w.bf, j, s);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float o = __fadd_rn(z[j][i], half_f(b, i));
-          if (s_a != nullptr) o = __fmul_rn(o, half_f(sap[j][i >> 1], i));
-          z[j][i] = __fadd_rn(o, half_f(xp[j][i >> 1], i));
-        }
-      }
-      ln_stats_slab(z, zh1, inv1);
-    }
-
-    // cast(h1) as the FFN's A operands
-    uint32_t ha[4][4];
-    {
-      uint32_t hp[8][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 sc = vec2(w.ln1s, j, s), b = vec2(w.ln1b, j, s);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          z[j][i] = __fadd_rn(__fmul_rn(zh1[j][i], half_f(sc, i)), half_f(b, i));
-      }
-      pack_acc(hp, z);
-      pack_a(ha, hp);
-      if constexpr (BWD) store_packed(ws.h1c + base, D, hp, s);
-    }
-
-    // the hidden layer, a chunk of columns at a time, never out of registers
-    float f2[8][4];
-    zero_acc(f2);
-    uint32_t relu_mask[N_CHUNKS];  // bit 4j + i: pre > 0 at tile j, entry i
-#pragma unroll
-    for (int ch = 0; ch < N_CHUNKS; ++ch) {
-      float pre[8][4];
-      zero_acc(pre);
-      mma_a_w<4, 8, LDW1>(pre, ha, sW + SW_W1 + FFN_CHUNK * ch, lane);
-      uint32_t mask = 0u;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 b = vec2(w.b1 + FFN_CHUNK * ch, j, s);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = __fadd_rn(pre[j][i], half_f(b, i));
-          if (p > 0.f) mask |= 1u << (4 * j + i);
-          pre[j][i] = fmaxf(p, 0.f);
-        }
-      }
-      relu_mask[ch] = mask;
-      uint32_t fp[8][2], fa[4][4];
-      pack_acc(fp, pre);
-      pack_a(fa, fp);
-      if constexpr (BWD) store_packed(ws.f1 + wide + FFN_CHUNK * ch, DFF, fp, s);
-      mma_a_w<4, 8, LDA>(f2, fa, sW + SW_W2 + FFN_CHUNK * ch * LDA, lane);
-    }
-
-    // z2 = (f1 W2 + b2)·s_f + h1, then LN2
-    float zh2[8][4], inv2[2];
-    uint32_t sfp[8][2];
-    if (s_f != nullptr) load_packed(sfp, s_f + base, D, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 b = vec2(w.b2, j, s), sc = vec2(w.ln1s, j, s), hb = vec2(w.ln1b, j, s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float f = __fadd_rn(f2[j][i], half_f(b, i));
-        if (s_f != nullptr) f = __fmul_rn(f, half_f(sfp[j][i >> 1], i));
-        // h1 in f32 again, the bits that were cast for the FFN
-        f2[j][i] = __fadd_rn(f, __fadd_rn(__fmul_rn(zh1[j][i], half_f(sc, i)), half_f(hb, i)));
-      }
-    }
-    ln_stats_slab(f2, zh2, inv2);
-
-    if constexpr (!BWD) {
-      uint32_t op[8][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 sc = vec2(w.ln2s, j, s), b = vec2(w.ln2b, j, s);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          f2[j][i] = __fadd_rn(__fmul_rn(zh2[j][i], half_f(sc, i)), half_f(b, i));
-      }
-      pack_acc(op, f2);
-      store_packed(out + base, D, op, s);
-    } else {
-      // LN2, the second dropout, the bias b2
-      float gy[8][4], gz2[8][4];
-      uint32_t p[8][2], ga[4][4];
-      load_packed(p, g + base, D, s);
-      unpack_acc(gy, p);
-      add_column_sums(acc[A_LN2S], s, lane, [&](int j, int i) { return gy[j][i] * zh2[j][i]; });
-      add_column_sums(acc[A_LN2B], s, lane, [&](int j, int i) { return gy[j][i]; });
-      ln_backward_slab(gz2, gy, zh2, inv2, w.ln2s, s);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          gy[j][i] = s_f != nullptr ? gz2[j][i] * half_f(sfp[j][i >> 1], i) : gz2[j][i];
-      add_column_sums(acc[A_B2], s, lane, [&](int j, int i) { return gy[j][i]; });
-      pack_acc(p, gy);  // gf2c
-      store_packed(ws.gf2c + base, D, p, s);
-      pack_a(ga, p);
-
-      // gf1 = gf2c W2ᵀ under the relu mask, chunk by chunk; its cast is the A
-      // operand of gh1 = gz2 + gf1c W1ᵀ, summed onto gz2 in the accumulators
-      float (&d)[8][4] = gz2;
-#pragma unroll
-      for (int ch = 0; ch < N_CHUNKS; ++ch) {
-        float gf1[8][4];
-        zero_acc(gf1);
-        mma_a_wt<4, 8, LDA>(gf1, ga, sW + SW_W2 + FFN_CHUNK * ch * LDA, lane);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (!((relu_mask[ch] >> (4 * j + i)) & 1u)) gf1[j][i] = 0.f;
-        add_column_sums(a_b1[ch], s, lane, [&](int j, int i) { return gf1[j][i]; });
-        uint32_t gfa[4][4];
-        pack_acc(p, gf1);  // gf1c
-        store_packed(ws.gf1c + wide + FFN_CHUNK * ch, DFF, p, s);
-        pack_a(gfa, p);
-        mma_a_wt<4, 8, LDW1>(d, gfa, sW + SW_W1 + FFN_CHUNK * ch, lane);
-      }
-
-      // LN1 and the first dropout
-      add_column_sums(acc[A_LN1S], s, lane, [&](int j, int i) { return d[j][i] * zh1[j][i]; });
-      add_column_sums(acc[A_LN1B], s, lane, [&](int j, int i) { return d[j][i]; });
-      ln_backward_slab(gy, d, zh1, inv1, w.ln1s, s);  // gz1
-      store_acc(ws.gz1 + base, D, gy, s);
-      if (s_a != nullptr) {
-        load_packed(p, s_a + base, D, s);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) gy[j][i] = gy[j][i] * half_f(p[j][i >> 1], i);
-      }
-      add_column_sums(acc[A_BF], s, lane, [&](int j, int i) { return gy[j][i]; });
-      pack_acc(p, gy);  // goc
-      store_packed(ws.goc + base, D, p, s);
-      pack_a(ga, p);
-
-      // gctx = cast(goc Wfᵀ)
-      zero_acc(d);
-      mma_a_wt<4, 8, LDA>(d, ga, sW + SW_WF, lane);
-      pack_acc(p, d);
-      store_packed(ws.gctx + base, D, p, s);
-    }
-  }
-
-  if constexpr (BWD) {
-    // the block's sums: warp 0's, then warp 1's added, ... (a fixed order)
-    const int col = 8 * (lane >> 2) + 2 * (lane & 3);
-    for (int wi = 0; wi < WARPS; ++wi) {
-      if (warp == wi) {
-#pragma unroll
-        for (int v = 0; v < N_ACC; ++v)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float* sp = sVec + ROW_VECS[v] - V_BF + col + e;
-            *sp = wi == 0 ? acc[v][e] : __fadd_rn(*sp, acc[v][e]);
-          }
-#pragma unroll
-        for (int ch = 0; ch < N_CHUNKS; ++ch)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float* sp = sVec + V_B1 - V_BF + FFN_CHUNK * ch + col + e;
-            *sp = wi == 0 ? a_b1[ch][e] : __fadd_rn(*sp, a_b1[ch][e]);
-          }
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < N_ROW_VECS; i += THREADS)
-      ws.part_v[(size_t)blockIdx.x * N_VEC + V_BF + i] = sVec[i];
-  }
-}
-
 __global__ void __launch_bounds__(THREADS)
 block_train_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s_a,
                            const bf16* __restrict__ s_f, bf16* __restrict__ out,
                            const Params<bf16> w, const int L, const float inv_temp) {
-  rows_mma_body<false>(x, s_a, s_f, nullptr, out, w, Workspace<bf16>{}, L, inv_temp);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t base = (size_t)blockIdx.x * L * D;
+  bf16* ob = out + base;
+  block_rows_mma<false, true, false>(
+      x + base, D, s_a ? s_a + base : nullptr, s_f ? s_f + base : nullptr, w, RowStores{}, L,
+      inv_temp, smem,
+      [&](const SlabLane& s, const float (&)[8][4], const float*, const float (&zh2)[8][4],
+          const float*, const uint32_t*, const uint32_t (&)[8][2]) {
+        uint32_t op[8][2];
+        ln_affine_packed(op, zh2, w.ln2s, w.ln2b, s);
+        store_packed(ob, D, op, s);
+      });
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -984,7 +593,115 @@ bwd_rows_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s_a,
                     const bf16* __restrict__ s_f, const bf16* __restrict__ g,
                     const Params<bf16> w, const Workspace<bf16> ws, const int L,
                     const float inv_temp) {
-  rows_mma_body<true>(x, s_a, s_f, g, nullptr, w, ws, L, inv_temp);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t base = (size_t)blockIdx.x * L * D;
+  const size_t wide = (size_t)blockIdx.x * L * DFF;
+  const bf16* sW = slab_smem(smem, pad_tile(L)).w;  // the tail's weights
+  float* sVec = reinterpret_cast<float*>(smem + slab_smem_bytes(L));  // from V_BF on
+  const bf16* sab = s_a ? s_a + base : nullptr;
+  const bf16* sfb = s_f ? s_f + base : nullptr;
+
+  // this lane's share of the vector gradients: columns 8g + c, c + 1 of each
+  // 64-wide one (in the order of ROW_VECS) and of each chunk of b1
+  enum { A_BF, A_LN1S, A_LN1B, A_B2, A_LN2S, A_LN2B, N_ACC };
+  constexpr int ROW_VECS[N_ACC] = {V_BF, V_LN1S, V_LN1B, V_B2, V_LN2S, V_LN2B};
+  float acc[N_ACC][2] = {};
+  float a_b1[N_CHUNKS][2] = {};
+
+  const RowStores st{ws.q + base, ws.k + base, ws.v + base, ws.ctx + base, ws.h1c + base,
+                     ws.f1 + wide};
+  block_rows_mma<false, true, true>(
+      x + base, D, sab, sfb, w, st, L, inv_temp, smem,
+      [&](const SlabLane& s, const float (&zh1)[8][4], const float* inv1,
+          const float (&zh2)[8][4], const float* inv2, const uint32_t* relu_mask,
+          const uint32_t (&sfp)[8][2]) {
+        // LN2, the second dropout, the bias b2
+        float gy[8][4], gz2[8][4];
+        uint32_t p[8][2], ga[4][4];
+        load_packed(p, g + base, D, s);
+        unpack_acc(gy, p);
+        add_column_sums(acc[A_LN2S], s, lane, [&](int j, int i) { return gy[j][i] * zh2[j][i]; });
+        add_column_sums(acc[A_LN2B], s, lane, [&](int j, int i) { return gy[j][i]; });
+        ln_backward_slab(gz2, gy, zh2, inv2, w.ln2s, s);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            gy[j][i] = sfb != nullptr ? gz2[j][i] * half_f(sfp[j][i >> 1], i) : gz2[j][i];
+        add_column_sums(acc[A_B2], s, lane, [&](int j, int i) { return gy[j][i]; });
+        pack_acc(p, gy);  // gf2c
+        store_packed(ws.gf2c + base, D, p, s);
+        pack_a(ga, p);
+
+        // gf1 = gf2c W2ᵀ under the relu mask, chunk by chunk; its cast is the A
+        // operand of gh1 = gz2 + gf1c W1ᵀ, summed onto gz2 in the accumulators
+        float (&d)[8][4] = gz2;
+#pragma unroll
+        for (int ch = 0; ch < N_CHUNKS; ++ch) {
+          float gf1[8][4];
+          zero_acc(gf1);
+          mma_a_wt<4, 8, LDA>(gf1, ga, sW + SW_W2 + FFN_CHUNK * ch * LDA, lane);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (!((relu_mask[ch] >> (4 * j + i)) & 1u)) gf1[j][i] = 0.f;
+          add_column_sums(a_b1[ch], s, lane, [&](int j, int i) { return gf1[j][i]; });
+          uint32_t gfa[4][4];
+          pack_acc(p, gf1);  // gf1c
+          store_packed(ws.gf1c + wide + FFN_CHUNK * ch, DFF, p, s);
+          pack_a(gfa, p);
+          mma_a_wt<4, 8, LDW1>(d, gfa, sW + SW_W1 + FFN_CHUNK * ch, lane);
+        }
+
+        // LN1 and the first dropout
+        add_column_sums(acc[A_LN1S], s, lane, [&](int j, int i) { return d[j][i] * zh1[j][i]; });
+        add_column_sums(acc[A_LN1B], s, lane, [&](int j, int i) { return d[j][i]; });
+        ln_backward_slab(gy, d, zh1, inv1, w.ln1s, s);  // gz1
+        store_acc(ws.gz1 + base, D, gy, s);
+        if (sab != nullptr) {
+          load_packed(p, sab, D, s);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) gy[j][i] = gy[j][i] * half_f(p[j][i >> 1], i);
+        }
+        add_column_sums(acc[A_BF], s, lane, [&](int j, int i) { return gy[j][i]; });
+        pack_acc(p, gy);  // goc
+        store_packed(ws.goc + base, D, p, s);
+        pack_a(ga, p);
+
+        // gctx = cast(goc Wfᵀ)
+        zero_acc(d);
+        mma_a_wt<4, 8, LDA>(d, ga, sW + SW_WF, lane);
+        pack_acc(p, d);
+        store_packed(ws.gctx + base, D, p, s);
+      });
+
+  // the block's sums: warp 0's, then warp 1's added, ... (a fixed order)
+  const int col = 8 * (lane >> 2) + 2 * (lane & 3);
+  for (int wi = 0; wi < WARPS; ++wi) {
+    if (warp == wi) {
+#pragma unroll
+      for (int v = 0; v < N_ACC; ++v)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* sp = sVec + ROW_VECS[v] - V_BF + col + e;
+          *sp = wi == 0 ? acc[v][e] : __fadd_rn(*sp, acc[v][e]);
+        }
+#pragma unroll
+      for (int ch = 0; ch < N_CHUNKS; ++ch)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* sp = sVec + V_B1 - V_BF + FFN_CHUNK * ch + col + e;
+          *sp = wi == 0 ? a_b1[ch][e] : __fadd_rn(*sp, a_b1[ch][e]);
+        }
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < N_ROW_VECS; i += THREADS)
+    ws.part_v[(size_t)blockIdx.x * N_VEC + V_BF + i] = sVec[i];
 }
 
 // ---- backward, stage 4: gx and the projections' gradient operands ----------

@@ -1,6 +1,8 @@
-// One post-LN FFT block for one batch row, as device functions: the body that
-// fft_block.cu's one-block and two-block kernels and fft_block_variants.cu's
-// profiling kernels all call.
+// One post-LN FFT block for one batch row on the CUDA cores, as device
+// functions: the body of fft_block.cu's float32 kernels (one block and the
+// pair; bfloat16 takes block_mma.cuh's tensor-core body, except in a build
+// with -DS2S_FFT_BLOCK_CUDA_CORES=1) and of fft_block_variants.cu's profiling
+// kernels in both dtypes.
 //
 //   q/k/v = cast(x Wq + bq) ...   (compute-dtype operands, f32 accumulation)
 //   ctx   = softmax(q kᵀ / √d_k) v   per head, 8 heads of d_k = 8
@@ -13,9 +15,10 @@
 // recomputed per query and never stored, ctx written over q), block_tail
 // (fc + LN1 + FFN + LN2, one row per warp, the 256-wide hidden layer in one
 // 256-entry buffer per warp). The ~49k weights are read through L1/L2, shared
-// by every block. Input, residual and output rows are plain pointers: device
-// memory for the one-block kernel, shared memory between the two blocks of
-// the pair kernel. Every loop is bounded by L, so ragged L needs no padding.
+// by every block: f32 has no tensor-core form while TF32 is off. Input,
+// residual and output rows are plain pointers: device memory for the
+// one-block kernel, shared memory between the two blocks of the pair kernel.
+// Every loop is bounded by L, so ragged L needs no padding.
 //
 // The softmax form is an argument: the exact row max (one more pass over the
 // keys) or the per-head Cauchy–Schwarz bound ‖q_t‖·max_s‖k_s‖/√d_k; both are
@@ -23,44 +26,11 @@
 
 #pragma once
 
-#include "attn_common.cuh"
+#include "block_mma.cuh"  // DFF, THREADS, WARPS, LN_EPS, BlockWeights
 
 namespace s2s {
 
-constexpr int DFF = 256;  // FFN width
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr float LN_EPS = 1e-5f;
 constexpr int TAIL_STAGE = 32;  // weights loaded ahead of their FMAs in block_tail
-
-static_assert(WARPS == H, "the k-norm reduction uses one warp per head");
-
-template <typename T>
-struct BlockWeights {
-  const T* wq; const float* bq;
-  const T* wk; const float* bk;
-  const T* wv; const float* bv;
-  const T* wf; const float* bf;
-  const float* ln1s; const float* ln1b;
-  const T* w1; const float* b1;
-  const T* w2; const float* b2;
-  const float* ln2s; const float* ln2b;
-};
-
-// 16 device pointers in the Pallas kernel's _WEIGHT_FIELDS order.
-template <typename T>
-inline BlockWeights<T> block_weights(void* const* p) {
-  return BlockWeights<T>{
-      static_cast<const T*>(p[0]),      static_cast<const float*>(p[1]),
-      static_cast<const T*>(p[2]),      static_cast<const float*>(p[3]),
-      static_cast<const T*>(p[4]),      static_cast<const float*>(p[5]),
-      static_cast<const T*>(p[6]),      static_cast<const float*>(p[7]),
-      static_cast<const float*>(p[8]),  static_cast<const float*>(p[9]),
-      static_cast<const T*>(p[10]),     static_cast<const float*>(p[11]),
-      static_cast<const T*>(p[12]),     static_cast<const float*>(p[13]),
-      static_cast<const float*>(p[14]), static_cast<const float*>(p[15]),
-  };
-}
 
 // The block's shared memory: q (then ctx, then cast(h1)), k, v, the hidden
 // rows of the eight warps, max_s ‖k_s‖ per head; `rest` is what follows.
@@ -82,9 +52,9 @@ __device__ __forceinline__ BlockSmem<T> carve_smem(unsigned char* smem, int L) {
 }
 
 // Bytes of BlockSmem for sequence length L, plus `extra_rows` more L x 64
-// compute-dtype buffers after it. ops/fft_block.py::shared_memory_bytes is the
-// Python twin (extra_rows = 0), checked by the wrapper before a launch: change
-// both together.
+// compute-dtype buffers after it. ops/fft_block.py::cuda_core_shared_memory_bytes
+// is the Python twin (extra_rows = 0), checked by the wrappers before a launch:
+// change both together.
 template <typename T>
 inline size_t block_smem_bytes(int L, int extra_rows = 0) {
   return (3 + (size_t)extra_rows) * L * D * sizeof(T) + (size_t)WARPS * DFF * sizeof(T) +

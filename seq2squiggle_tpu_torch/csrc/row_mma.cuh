@@ -1,9 +1,10 @@
 // Tensor-core building blocks shared by the port's bf16 kernels (attn_core.cu,
-// the training attention core; block_train.cu, the whole-block training
-// kernels): `mma.sync` steps with f32 sums, `ldmatrix` fragment loads from
-// shared memory, products of a warp's 16-row slab against a weight tile in
-// shared memory, epilogue helpers on accumulator fragments, and the attention
-// sweep of 16 queries over all keys of one head.
+// the training attention core; block_mma.cuh, the whole FFT block that
+// block_train.cu and fft_block.cu run): `mma.sync` steps with f32 sums,
+// `ldmatrix` fragment loads from shared memory, products of a warp's 16-row
+// slab against a weight tile in shared memory, epilogue helpers on
+// accumulator fragments, and the attention sweep of 16 queries over all keys
+// of one head, with the Cauchy–Schwarz shift or the exact row max.
 //
 // Fragment layouts of mma.sync.m16n8k16 (bf16 operands, f32 sums). Lane l has
 // g = l / 4 and c = 2·(l % 4):
@@ -145,22 +146,50 @@ __device__ __forceinline__ float row_shift2(uint32_t pair, float knorm, float in
   return __fmul_rn(__fmul_rn(__fmul_rn(sqrtf(n2), knorm), inv_temp), EXP_UNIT);
 }
 
-// e for the 16 queries of A operand `qa` against keys s0..s0+15, as the A
-// operand of m16n8k16 (queries x keys); keys >= L give 0. sh0, sh1: shift2 of
-// query rows g and g + 8.
+// The exact form's two neighbouring values of e = exp((s − m)/√d_k), m the
+// row's largest un-tempered score (the head loop's rounding points: the
+// difference, then the temper), as exp_pair packs them.
+__device__ __forceinline__ uint32_t exp_pair_max(float s0, float s1, float scale2, float m0,
+                                                 float m1) {
+  return pack2(ex2(__fmul_rn(__fsub_rn(s0, m0), scale2)),
+               ex2(__fmul_rn(__fsub_rn(s1, m1), scale2)));
+}
+
+// Scores of the 16 queries of A operand `qa` against keys s0..s0+15: c0 keys
+// s0 + c, c + 1 and c1 keys s0 + 8 + c, c + 1, rows g ([0], [1]) and g + 8
+// ([2], [3]).
 template <int LD = DK>
+__device__ __forceinline__ void score_block(float c0[4], float c1[4], const uint32_t qa[2],
+                                            const bf16* sK, int s0, int lane) {
+  uint32_t kb0, kb1;
+  load_rows<LD>(kb0, kb1, sK, s0, lane);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c0[i] = c1[i] = 0.f;
+  mma_k8(c0, qa, kb0);
+  mma_k8(c1, qa, kb1);
+}
+
+// e for the 16 queries of A operand `qa` against keys s0..s0+15, as the A
+// operand of m16n8k16 (queries x keys); keys >= L give 0. sh0, sh1 for query
+// rows g and g + 8: shift2 (Cauchy–Schwarz form), or with EXACT the rows'
+// largest un-tempered scores (`row_max_tile`).
+template <int LD = DK, bool EXACT = false>
 __device__ __forceinline__ void exp_block_rows(uint32_t e[4], const uint32_t qa[2],
                                                const bf16* sK, int s0, int L, int lane,
                                                float scale2, float sh0, float sh1) {
-  uint32_t kb0, kb1;
-  load_rows<LD>(kb0, kb1, sK, s0, lane);
-  float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_k8(c0, qa, kb0);
-  mma_k8(c1, qa, kb1);
-  e[0] = exp_pair(c0[0], c0[1], scale2, sh0, sh0);
-  e[1] = exp_pair(c0[2], c0[3], scale2, sh1, sh1);
-  e[2] = exp_pair(c1[0], c1[1], scale2, sh0, sh0);
-  e[3] = exp_pair(c1[2], c1[3], scale2, sh1, sh1);
+  float c0[4], c1[4];
+  score_block<LD>(c0, c1, qa, sK, s0, lane);
+  if constexpr (EXACT) {
+    e[0] = exp_pair_max(c0[0], c0[1], scale2, sh0, sh0);
+    e[1] = exp_pair_max(c0[2], c0[3], scale2, sh1, sh1);
+    e[2] = exp_pair_max(c1[0], c1[1], scale2, sh0, sh0);
+    e[3] = exp_pair_max(c1[2], c1[3], scale2, sh1, sh1);
+  } else {
+    e[0] = exp_pair(c0[0], c0[1], scale2, sh0, sh0);
+    e[1] = exp_pair(c0[2], c0[3], scale2, sh1, sh1);
+    e[2] = exp_pair(c1[0], c1[1], scale2, sh0, sh0);
+    e[3] = exp_pair(c1[2], c1[3], scale2, sh1, sh1);
+  }
   if (s0 + TILE > L) {  // the ragged last step: a zero key would give exp(−shift)
     const int key = s0 + 2 * (lane & 3);
     const uint32_t m0 = (key < L ? 0x0000ffffu : 0u) | (key + 1 < L ? 0xffff0000u : 0u);
@@ -169,10 +198,38 @@ __device__ __forceinline__ void exp_block_rows(uint32_t e[4], const uint32_t qa[
   }
 }
 
+// The exact form's shift: the largest un-tempered score of query rows g (m0)
+// and g + 8 (m1) of `qa` over the keys < L, from the same `mma.sync` scores
+// that exp_block_rows then recomputes, so every e <= 1 and the largest is 1.
+// A max needs no fixed order: the quad joins by shuffles.
+template <int LD = DK>
+__device__ __forceinline__ void row_max_tile(float& m0, float& m1, const uint32_t qa[2],
+                                             const bf16* sK, int L, int Lp, int lane) {
+  m0 = m1 = -INFINITY;
+  for (int s0 = 0; s0 < Lp; s0 += TILE) {
+    float c0[4], c1[4];
+    score_block<LD>(c0, c1, qa, sK, s0, lane);
+    if (s0 + TILE > L) {  // padded keys hold the biases' scores: no part of the max
+      const int key = s0 + 2 * (lane & 3);
+      if (key >= L) c0[0] = c0[2] = -INFINITY;
+      if (key + 1 >= L) c0[1] = c0[3] = -INFINITY;
+      if (key + 8 >= L) c1[0] = c1[2] = -INFINITY;
+      if (key + 9 >= L) c1[1] = c1[3] = -INFINITY;
+    }
+    m0 = fmaxf(m0, fmaxf(fmaxf(c0[0], c0[1]), fmaxf(c1[0], c1[1])));
+    m1 = fmaxf(m1, fmaxf(fmaxf(c0[2], c0[3]), fmaxf(c1[2], c1[3])));
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+}
+
 // num = Σ e·v and den = Σ e (not yet clamped) of the 16 queries of `qa` over
 // all keys: rows g in [0], [1] and g + 8 in [2], [3]; den the same in both
-// columns.
-template <int LD = DK>
+// columns. sh0, sh1 as exp_block_rows takes them.
+template <int LD = DK, bool EXACT = false>
 __device__ __forceinline__ void attend_tile(float num[4], float den[4], const uint32_t qa[2],
                                             const bf16* sK, const bf16* sV, int L, int Lp,
                                             int lane, float scale2, float sh0, float sh1) {
@@ -180,7 +237,7 @@ __device__ __forceinline__ void attend_tile(float num[4], float den[4], const ui
   for (int i = 0; i < 4; ++i) num[i] = den[i] = 0.f;
   for (int s0 = 0; s0 < Lp; s0 += TILE) {
     uint32_t e[4], vt0, vt1;
-    exp_block_rows<LD>(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
+    exp_block_rows<LD, EXACT>(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
     load_rows_t<LD>(vt0, vt1, sV, s0, lane);
     mma_k16(num, e, vt0, vt1);
     mma_k16(den, e, ONES2, ONES2);

@@ -60,7 +60,7 @@ from . import _build
 from .attn_core import (_heads, _mm, _packed, _softmax_terms,
                         packed_attention_backward_terms)
 from .attn_core import shared_memory_bytes as attn_core_smem
-from .fft_block import D_FF, D_MODEL, N_HEAD, WEIGHT_FIELDS, _get
+from .fft_block import D_FF, D_MODEL, N_HEAD, WEIGHT_FIELDS, _get, slab_shared_memory_bytes
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 LN_EPS = 1e-5
@@ -222,33 +222,23 @@ def _check(x, weights, s_a, s_f, n_head: int, g=None) -> None:
                              f"masters); got {tuple(w.shape)} {w.dtype} on {w.device}")
 
 
-# The bfloat16 kernels' weights in shared memory, in bytes: the tail's Wf and
-# W2 in rows of 64 + 8 values and W1 in rows of 256 + 8; the projections' Wq,
-# Wk, Wv in rows of 64 + 8.
-_ROW_PAD = 8
-_TAIL_WEIGHTS = 2 * ((D_MODEL + D_FF) * (D_MODEL + _ROW_PAD) + D_MODEL * (D_FF + _ROW_PAD))
-_PROJECTION_WEIGHTS = 2 * 3 * D_MODEL * (D_MODEL + _ROW_PAD)
-
-
 def shared_memory_bytes(L: int, dtype: torch.dtype, backward: bool) -> int:
     """Dynamic shared memory of one thread block of the per-batch-row kernels:
     the Python twin of rows_mma_smem (bfloat16) and row_kernel_smem (float32)
-    in csrc/block_train.cu. bfloat16: q with L padded to 16-row slabs, rows
-    of 64 + 8 values; a region that holds k, v and the projections' weights
-    and later, k and v being dead, the tail's weights; max‖k‖ per head and,
-    backward, the 640 vector sums. float32: q, k, v rows, per warp a 64- and a 256-wide
-    scratch row and, backward, a second 64-wide one; then the same floats.
-    The backward also runs the attention-core backward, which needs less."""
-    n_floats = N_HEAD + ((6 * D_MODEL + D_FF) if backward else 0)
+    in csrc/block_train.cu. bfloat16: csrc/block_mma.cuh's body (q with L
+    padded to 16-row slabs, rows of 64 + 8 values; a region that holds k, v
+    and the projections' weights and later, k and v being dead, the tail's
+    weights), then, backward, the 640 vector sums. float32: q, k, v rows, per
+    warp a 64- and a 256-wide scratch row and, backward, a second 64-wide
+    one; then max‖k‖ per head and the same sums. The backward also runs the
+    attention-core backward, which needs less."""
+    n_sums = (6 * D_MODEL + D_FF) if backward else 0
     if dtype == torch.bfloat16:
-        padded = -(-L // 16) * 16
-        row = (D_MODEL + _ROW_PAD) * 2
-        region = max(2 * padded * row + _PROJECTION_WEIGHTS, _TAIL_WEIGHTS)
-        rows = padded * row + region + n_floats * 4
+        rows = slab_shared_memory_bytes(L) + n_sums * 4
     else:
         size, warps = torch.finfo(dtype).bits // 8, 8
         rows = ((3 * L * D_MODEL + warps * (D_MODEL + D_FF + (D_MODEL if backward else 0))) * size
-                + n_floats * 4)
+                + (N_HEAD + n_sums) * 4)
     return max(rows, attn_core_smem(L, dtype, True)) if backward else rows
 
 

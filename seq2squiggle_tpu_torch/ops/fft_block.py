@@ -10,18 +10,16 @@ runs two blocks in that thread block and keeps the activation between them
 on the chip, rounded to the compute dtype as the store between two one-block
 launches rounds it: bit-equal to two `fused_fft_block` calls.
 
-What bounds them on the H100: not device memory. A decoder call at B=1024,
-L=250 moves ~66 MB of activations (in and out, bf16), ~20 us at 3.35 TB/s,
-but does ~42 GFLOP per block, and this first version runs them as f32 FMA
-loops on the CUDA cores with d_k = 8 contractions, so it is bound by issue
-rate and shared-memory bandwidth. The design keeps every intermediate (q, k,
-v, the scores, the 256-wide hidden layer) on chip so that the only
-device-memory traffic is one read of x and one write of the output, reads the
-~49k weights through L1/L2 (every block shares them), and leaves tensor cores
-(mma.sync / wgmma for the projections and the FFN) to a later change. The
-pair saves one more round trip of the activation (~20 us) and pays for it
-with a fourth L x 64 shared-memory buffer, which leaves room for one thread
-block per SM at L = 250 in bf16 where the one-block kernel has two.
+What bounds them on the H100: operations, not device memory. A decoder call
+at B=1024, L=250 moves ~66 MB of activations (in and out, bf16), ~20 us at
+3.35 TB/s, but does ~42 GFLOP per block, ~42 us at the tensor cores' 989
+TFLOP/s. bfloat16 runs on the tensor cores (`csrc/block_mma.cuh`, the body
+the whole-block training forward shares): a warp per 16-row slab of
+positions, every matrix product `mma.sync` against weights staged in shared
+memory once per thread block, the attention as the attention core's sweep,
+the 256-wide hidden layer in registers. float32 has no tensor-core form while
+TF32 is off and runs `csrc/fft_block_body.cuh` on the CUDA cores (f32 FMA
+loops, a row per warp, the ~49k weights read through L1/L2).
 
 Numerics are the TPU kernel's (`_apply_block`): compute-dtype operands with
 f32 accumulation, q/k/v cast to the compute dtype, exp in f32 cast to the
@@ -183,28 +181,77 @@ def check_input(x: torch.Tensor, n_head: int, name: str) -> None:
                          f"got shape {tuple(x.shape)}, {n_head} heads")
 
 
-def shared_memory_bytes(L: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one thread block of the one-block kernel, the
-    pair and the profiling variants: the Python twin of block_smem_bytes in
-    csrc/fft_block_body.cuh (q, k, v rows, a 256-wide hidden row per warp,
-    max‖k‖ per head). The pair's fourth buffer is optional there (beyond its
-    room the activation is staged through the output), so it adds no ceiling."""
+_ROW_PAD = 8  # values past a 64- or 256-wide row in the bf16 body's shared memory
+# the bf16 body's weights in shared memory, in values: Wq, Wk, Wv (rows of 72)
+# beside k and v, then Wf, W2 (rows of 72) and W1 (rows of 264) over them
+_PROJECTION_WEIGHTS = 3 * D_MODEL * (D_MODEL + _ROW_PAD)
+_TAIL_WEIGHTS = (D_MODEL + D_FF) * (D_MODEL + _ROW_PAD) + D_MODEL * (D_FF + _ROW_PAD)
+
+
+def _padded(L: int) -> int:
+    return -(-L // 16) * 16
+
+
+def cuda_core_shared_memory_bytes(L: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one thread block of the CUDA-core body (the
+    float32 one-block kernel and pair; the profiling variants in both
+    dtypes): the Python twin of block_smem_bytes in csrc/fft_block_body.cuh
+    (q, k, v rows, a 256-wide hidden row per warp, max‖k‖ per head)."""
     size = torch.finfo(dtype).bits // 8
     return (3 * L * D_MODEL + 8 * D_FF) * size + N_HEAD * 4
 
 
+def slab_shared_memory_bytes(L: int) -> int:
+    """Shared memory of csrc/block_mma.cuh's bfloat16 body, which this block
+    and the whole-block training kernels run: the Python twin of
+    slab_smem_bytes there. q with L padded to 16-row slabs, rows of 64 + 8
+    values; then a region that holds k, v and Wq, Wk, Wv, later Wf, W2, W1
+    over the dead k and v."""
+    row = D_MODEL + _ROW_PAD
+    region = max(2 * _padded(L) * row + _PROJECTION_WEIGHTS, _TAIL_WEIGHTS)
+    return (_padded(L) * row + region) * 2
+
+
+def shared_memory_bytes(L: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one thread block of the one-block kernel and
+    of the pair where the pair stages its activation through device memory:
+    bfloat16 `slab_shared_memory_bytes`, float32
+    `cuda_core_shared_memory_bytes`."""
+    if dtype == torch.bfloat16:
+        return slab_shared_memory_bytes(L)
+    return cuda_core_shared_memory_bytes(L, dtype)
+
+
+def pair_keeps_activation_on_chip(L: int, dtype: torch.dtype) -> bool:
+    """Whether the pair keeps the activation between its blocks in shared
+    memory (one more buffer: L padded to 16 rows of 72 values in bfloat16,
+    L x 64 in float32) on an H100; beyond that it stages it through the
+    output rows in device memory, in the same launch and with the same bits.
+    The twin of launch_pair_mma / launch_pair in csrc/fft_block.cu."""
+    if dtype == torch.bfloat16:
+        extra = _padded(L) * (D_MODEL + _ROW_PAD) * 2
+    else:
+        extra = L * D_MODEL * torch.finfo(dtype).bits // 8
+    return shared_memory_bytes(L, dtype) + extra <= _build.SHARED_MEMORY_MAX
+
+
+LENGTH_HINT = "`use_pallas: false` runs longer sequences through the plain blocks"
+
+
 def check_length(L: int, dtype: torch.dtype, name: str = "fused_fft_block") -> None:
     """Raise a ValueError if a batch row of length L does not fit."""
-    _build.check_shared_memory(name, L, dtype, lambda n: shared_memory_bytes(n, dtype))
+    _build.check_shared_memory(name, L, dtype, lambda n: shared_memory_bytes(n, dtype),
+                               hint=LENGTH_HINT)
 
 
-def launch_kernel(entry: str, x: torch.Tensor, ptrs, option: int) -> torch.Tensor:
+def launch_kernel(entry: str, x: torch.Tensor, ptrs, option: int,
+                  check=check_length) -> torch.Tensor:
     """Run the C entry point `entry` (s2s_fft_block's argument list) on x with
     the weight pointer array `ptrs`; `option` is its one integer knob. Raises
-    if the sequence does not fit in shared memory or the launch is refused.
-    The caller counts the launch."""
+    if the sequence does not fit in shared memory (`check(L, dtype, entry)`)
+    or the launch is refused. The caller counts the launch."""
     B, L, _ = x.shape
-    check_length(L, x.dtype, entry)
+    check(L, x.dtype, entry)
     x = x.contiguous()
     out = torch.empty_like(x)
     if B == 0:
@@ -252,10 +299,11 @@ def fused_fft_block_pair(x: torch.Tensor, block0: dict, block1: dict, n_head: in
 
     A CUDA tensor runs the pair kernel (or raises: it never steps down to two
     launches); a CPU tensor runs the plain version. The activation between the
-    blocks stays in shared memory where a fourth L x 64 buffer fits beside
-    q, k, v (bf16 to L = 440, f32 to L = 218 on an H100); beyond that the same
-    thread block stages it through its rows of the output tensor in device
-    memory, still in the one launch and with the same bits.
+    blocks stays in shared memory where one more buffer fits beside the
+    block's (bf16 to L = 352, f32 to L = 218 on an H100:
+    `pair_keeps_activation_on_chip`); beyond that the same thread block
+    stages it through its rows of the output tensor in device memory, still
+    in the one launch and with the same bits.
     """
     global pair_launches
     if not x.is_cuda:

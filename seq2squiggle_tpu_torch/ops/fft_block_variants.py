@@ -8,16 +8,17 @@ timing kernels under scripts/profiling/ of the JAX package,
 They time what each piece of the attention costs inside the fused block
 (`scripts/profile_torch_block_variants.py` runs them on the card); the model
 never calls them. Each is one launch of `csrc/fft_block_variants.cu`: the
-fused block's projections and tail around another attention, one thread per
-query walking the heads. Like the fused block they are bound by the issue
-rate of f32 loops over shared memory, not by device memory.
+CUDA-core body's projections and tail (`csrc/fft_block_body.cuh`, the float32
+fused block's) around another attention, one thread per query walking the
+heads, in both dtypes. They are bound by the issue rate of f32 loops over
+shared memory, not by device memory.
 
   a  softmax in f32 on the tempered scores, probabilities cast to the compute
      dtype, then probs·v cast: the form before the block's softmax was
      restructured
-  b  the block's exact-max form (`fused_fft_block(packed=False)`): one exp
-     pass cast to the compute dtype, den summed from the cast values, the
-     divide after e·v
+  b  the block's exact-max form (`fused_fft_block(packed=False)`, bit-equal
+     to it in float32): one exp pass cast to the compute dtype, den summed
+     from the cast values, the divide after e·v
   c  b with den as a ninth column of the e·v product (v extended by a column
      of ones). On the TPU that saves a matrix product; on this card den is
      already summed inside the e·v loop, so c's arithmetic is b's and the
@@ -38,7 +39,11 @@ from __future__ import annotations
 
 import torch
 
-from .fft_block import _mm, _weight_pointers, block_reference, check_input, launch_kernel
+from . import _build
+from .fft_block import (
+    _mm, _weight_pointers, block_reference, check_input, cuda_core_shared_memory_bytes,
+    launch_kernel,
+)
 
 ABC_VARIANTS = ("a", "b", "c")
 D_VARIANTS = ("b", "d")
@@ -160,7 +165,15 @@ def _check_stage(stage: str, L: int, d_k: int) -> None:
 
 def _launch(entry: str, x, block, n_head, option: int) -> torch.Tensor:
     check_input(x, n_head, entry)
-    return launch_kernel(entry, x, _weight_pointers(block, x.dtype, x.device), option)
+    return launch_kernel(entry, x, _weight_pointers(block, x.dtype, x.device), option,
+                         check=_check_length)
+
+
+def _check_length(L: int, dtype: torch.dtype, entry: str) -> None:
+    """The CUDA-core body's ceiling (csrc/fft_block_body.cuh), with no way
+    out to name: the variants exist only to be timed."""
+    _build.check_shared_memory(entry, L, dtype,
+                               lambda n: cuda_core_shared_memory_bytes(n, dtype))
 
 
 def fused_abc(x: torch.Tensor, block: dict, n_head: int, variant: str = "b") -> torch.Tensor:
