@@ -14,9 +14,10 @@ Phases (any failure raises and the script exits non-zero):
      batch 16 at each dtype's ceiling (bf16 464, f32 291), in bf16 (<= 4 bf16
      ULPs of max(1, max|plain|)) and f32 (rtol 1e-4, atol 1e-5), and the
      Cauchy–Schwarz underflow input (finite output); median times of both
-     with CUDA events after warm-up; sha256 digests of the f32 fused block
-     and pair outputs and of the bf16 whole-block training kernels' outputs
-     (to compare two trees: `python3 chip_smoke.py --digests TREE`);
+     with CUDA events after warm-up; sha256 digests of the fused block and
+     pair outputs in f32 and bf16, of the bf16 whole-block training kernels'
+     outputs and of the f32 attention-core kernels' (to compare two trees:
+     `python3 chip_smoke.py --digests TREE`);
   3. whole predict step: predict_step in f32 on the GPU against the same step
      on the CPU (counts equal on >= 99.9 % of rows, samples within 1 count on
      all but <= 0.1 % of those rows), then the bf16 step through the kernel
@@ -34,8 +35,8 @@ Phases (any failure raises and the script exits non-zero):
      gradients rtol 1e-4 / atol 1e-5) and bf16 (forward within 4 bf16 ULPs of
      max|plain|, gradients within 8 of max(1, max|plain|)); the underflow
      input finite in both directions; the backward run twice bit-equal at
-     each; a digest of the f32 outputs (to compare two trees: `python3
-     chip_smoke.py --core-f32-digest TREE`); median times of each kernel, its
+     each; a digest of the f32 outputs (also one of phase 2's digests);
+     median times of each kernel, its
      plain version and F.scaled_dot_product_attention (timed and printed only);
   6. one train step: f32, `pallas_train: core`, dropout on, the same batch,
      parameters and key on the GPU through the kernels and on the CPU
@@ -88,15 +89,19 @@ Phases (any failure raises and the script exits non-zero):
      `packed=False`, L = 250 and `packed=True`, L = 16 against plain; the
      underflow input finite through the pair; median times of the pair, of
      two one-block launches and of the plain version;
- 12. profiling variants vs plain: every variant (a, b, c, d) and stage (proj
-     ... full) of ops/fft_block_variants.py at (2048, 250, 64) bf16 and a
-     ragged (3, 37) f32 against its plain version (bars of phase 2; the
-     stages' f32 atol scaled by max(1, max|plain|), their sinks being
-     unnormalised sums), c bit-equal to b, b bit-equal to the fused block's
-     exact form in f32 (in bf16 the block runs on the tensor cores and both
-     are held against plain); then scripts/profile_torch_block_variants.py's
-     interleaved timing
-     (2 rounds), launches counted, the stage differences printed;
+ 12. the fused block's profiling kernels vs plain: each of the eight
+     `ablate` cuts (`fused_fft_block(..., ablate=...)`) in both softmax forms
+     at (2048, 250, 64) bf16, (3, 37) f32 and bf16 at L = 15, 16, 17 and 37
+     (slab edges; 37 pads to 40 on the TPU and to 48 here), and every variant
+     (a, b, c, d) and stage (proj ... full) of ops/fft_block_variants.py at
+     the same shapes (bars of phase 2; the stages' f32 atol scaled by
+     max(1, max|plain|), their sinks being unnormalised sums), c and b
+     bit-equal to the fused block's exact form in both dtypes; median times
+     at (2048, 250) bf16; then scripts/profile_torch_block_variants.py's
+     interleaved timing of the variants and scripts/profile_torch_attn_
+     breakdown.py's of the cuts on two blocks (2 rounds each), the launches
+     of their timed rounds counted, the stage differences and full − cut
+     printed;
  13. predict main path at `pallas_pair: true`: phase 4's run with that knob;
      per batch 2 one-block launches (the encoder) and 1 pair launch, the
      BLOW5 equal record for record to phase 4's; then a small POD5 run (where
@@ -105,9 +110,11 @@ Phases (any failure raises and the script exits non-zero):
      on the card, each read back.
 
 The line before the last is a JSON object with each kernel's route, source,
-launches on its main path, error, times and bound (the least time the card
-could take: bytes over 3.35 TB/s against operations over the peak of their
-type, 989 TFLOP/s bf16 and 67 TFLOP/s f32, NVIDIA's H100 SXM data sheet);
+launches on its main path (for the profiling kernels: in their timing
+scripts' timed rounds), error, times and bound (the least time the card could
+take: bytes over 3.35 TB/s against operations over the peak of their type,
+989 TFLOP/s bf16 and 67 TFLOP/s f32, NVIDIA's H100 SXM data sheet; for the
+cuts, the slowest cut's time at (2048, 250, 64) bf16 and that cut's work);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -137,6 +144,7 @@ SEED = 7
 CORE_LENGTHS = (1, 15, 16, 17, 37, 250, 256, 283)  # phase 5; 250 at the train batch
 BLOCK_LENGTHS = (1, 15, 16, 17, 37, 250)  # phase 8; 250 at the train batch
 EDGE_LENGTHS = (1, 15, 16, 17, 31, 32, 33, 37)  # phase 2: 16-row slabs, packed_default
+VARIANT_EDGES = (15, 16, 17, 37)  # phase 12: 16-row slabs; 37 pads to 40 on the TPU, 48 here
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type.
 PEAK_BYTES = 3.35e12
@@ -331,11 +339,12 @@ def phase_kernel(params_by_dtype, dev):
 
 
 def digests(dev) -> dict:
-    """sha256 over outputs on inputs from SEED: the f32 fused block (both
-    softmax forms) and pair (both forms) at (3, 37) and (1024, 250) with the
-    committed R10 decoder blocks, and the bf16 whole-block training kernels'
-    forward output, gx and the 16 weight gradients at (3, 37) and (512, 250)
-    with dropout scales. Two trees whose kernels agree bit for bit print the
+    """sha256 over outputs on inputs from SEED: the fused block (both softmax
+    forms) and pair (both forms) at (3, 37) and (1024, 250) with the
+    committed R10 decoder blocks, f32 and bf16; the bf16 whole-block training
+    kernels' forward output, gx and the 16 weight gradients at (3, 37) and
+    (512, 250) with dropout scales; the f32 attention-core kernels
+    (`core_f32_digest`). Two trees whose kernels agree bit for bit print the
     same digests."""
     import hashlib
 
@@ -348,14 +357,16 @@ def digests(dev) -> dict:
 
     gen = torch.Generator().manual_seed(SEED)
     host, _ = load_checkpoint(str(R10))
-    b0, b1 = fft_model.to_device(host, dev, torch.float32)["decoder"]["blocks"]
-    fused = hashlib.sha256()
-    for B, L in ((3, 37), (BATCH, 250)):
-        x = torch.randn(B, L, 64, generator=gen).to(dev)
-        for packed in (False, True):
-            for out in (fb.fused_fft_block(x, b0, 8, packed), fb.fused_fft_block_pair(
-                    x, b0, b1, 8, packed)):
-                fused.update(out.cpu().numpy().tobytes())
+    fused = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        b0, b1 = fft_model.to_device(host, dev, dtype)["decoder"]["blocks"]
+        fused[dtype] = hashlib.sha256()
+        for B, L in ((3, 37), (BATCH, 250)):
+            x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
+            for packed in (False, True):
+                for out in (fb.fused_fft_block(x, b0, 8, packed), fb.fused_fft_block_pair(
+                        x, b0, b1, 8, packed)):
+                    fused[dtype].update(out.float().cpu().numpy().tobytes())
     block = fft_model.init_params(load_config(None), prng.key(SEED))["decoder"]["blocks"][0]
     weights = [w.to(dev).contiguous() for w in bt.block_weights(block)]
     train = hashlib.sha256()
@@ -366,8 +377,9 @@ def digests(dev) -> dict:
         gx, gws = bt.fused_block_train_backward(x, weights, *scales, g, 8)
         for t in (bt.fused_block_train_forward(x, weights, *scales, 8), gx, *gws):
             train.update(t.float().cpu().numpy().tobytes())
-    return {"fused_block_and_pair_f32": fused.hexdigest(),
-            "block_train_bf16": train.hexdigest()}
+    return {"fused_block_and_pair_f32": fused[torch.float32].hexdigest(),
+            "fused_block_and_pair_bf16": fused[torch.bfloat16].hexdigest(),
+            "block_train_bf16": train.hexdigest(), "core_f32": core_f32_digest(dev)}
 
 
 def _batch(B, seed):
@@ -583,37 +595,69 @@ def phase_pair(params_by_dtype, dev):
     return result
 
 
+def cut_work(B: int, L: int, dtype: torch.dtype, cut: str):
+    """Bytes and FLOPs of one fused-block call with a profiling cut: the
+    block's (fused_block_work) less the products the cut takes out (noattn
+    the scores and e·v, noffn the FFN, thin16 the scores of 6 of 8 heads)."""
+    n_bytes, flops = fused_block_work(B, L, dtype)
+    less = {"noattn": 256 * L, "noffn": 2 * 2 * 64 * 256, "thin16": 6 * 2 * L * 8}
+    return n_bytes, flops - B * L * less.get(cut, 0)
+
+
 def phase_variants(params_by_dtype, dev):
-    """Phase 12: the profiling variants against plain, then the timing script."""
+    """Phase 12: the fused block's profiling kernels (the eight `ablate` cuts,
+    the variants a ... d and the stages) against plain, then the two timing
+    scripts with the launches of their timed rounds counted."""
     sys.path.insert(0, str(ROOT / "scripts"))
+    import profile_torch_attn_breakdown as breakdown
     import profile_torch_block_variants as script
 
     from seq2squiggle_tpu_torch.ops import fft_block as fb
     from seq2squiggle_tpu_torch.ops import fft_block_variants as tv
 
     gen = torch.Generator().manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    timing = (2048, 250)
+    shapes = [(f32, (3, 37)), (bf16, timing)] + [(bf16, (3, L)) for L in VARIANT_EDGES]
+
+    # the cuts, both softmax forms
+    worst = {"ablate": 0.0, "abc": 0.0, "d": 0.0, "parts": 0.0}
+    cut_times = {}
+    for dtype, (B, L) in shapes:
+        name = str(dtype)[6:]
+        block = params_by_dtype[dtype]["decoder"]["blocks"][0]
+        x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
+        errs = []
+        for packed in (False, True):
+            for cut in tv.ABLATIONS:
+                got = fb.fused_fft_block(x, block, 8, packed, cut)
+                torch.cuda.synchronize()
+                err = hold_block(f"cut {cut} {name} {B}x{L} packed={packed}", got,
+                                 fb.fused_fft_block_reference(x, block, 8, packed, cut), dtype)
+                if dtype == bf16:
+                    worst["ablate"] = max(worst["ablate"], err)
+                errs.append(err)
+                if (B, L) == timing and packed:
+                    cut_times[cut] = (
+                        median_ms(lambda: fb.fused_fft_block(x, block, 8, True, cut)),
+                        median_ms(lambda: fb.fused_fft_block_reference(x, block, 8, True, cut),
+                                  iters=5))
+                del got
+        log(f"cuts vs plain {name} {B}x{L}, both softmax forms: max|err| {max(errs):.3g}")
+
+    # a, b, c, d and the stages
     calls = ([("abc", v, tv.fused_abc, tv.fused_abc_reference) for v in tv.ABC_VARIANTS]
              + [("d", v, tv.fused_d, tv.fused_d_reference) for v in tv.D_VARIANTS]
              + [("parts", st, tv.fused_parts, tv.fused_parts_reference) for st in tv.STAGES])
-    worst = {"abc": 0.0, "d": 0.0, "parts": 0.0}
     times = {}
-    for dtype, (B, L) in ((torch.float32, (3, 37)), (torch.bfloat16, (2048, 250))):
+    for dtype, (B, L) in shapes:
         name = str(dtype)[6:]
         block = params_by_dtype[dtype]["decoder"]["blocks"][0]
         x = (torch.randn(B, L, 64, generator=gen) * 0.5).to(dev, dtype)
         b = tv.fused_abc(x, block, 8, "b")
-        check(torch.equal(tv.fused_abc(x, block, 8, "c"), b), f"variant c != b ({name})")
-        exact = fb.fused_fft_block(x, block, 8, packed=False)
-        if dtype == torch.float32:  # both on the CUDA-core body
-            check(torch.equal(exact, b), f"variant b != the fused block's exact form ({name})")
-            same = "b to the fused block's exact form"
-        else:  # the block on the tensor cores, b on the CUDA cores: both against plain
-            ref = fb.fused_fft_block_reference(x, block, 8, packed=False)
-            hold_block(f"fused block exact form {name} {B}x{L}", exact, ref, dtype)
-            hold_block(f"variant b {name} {B}x{L}", b, ref, dtype)
-            same = "b and the fused block's exact form both within the bar of plain"
-            del ref
-        del exact
+        check(torch.equal(tv.fused_abc(x, block, 8, "c"), b), f"variant c != b ({name} {B}x{L})")
+        check(torch.equal(fb.fused_fft_block(x, block, 8, packed=False), b),
+              f"variant b != the fused block's exact form ({name} {B}x{L})")
         errs = []
         for group, choice, fn, ref_fn in calls:
             got, ref = fn(x, block, 8, choice), ref_fn(x, block, 8, choice)
@@ -622,7 +666,7 @@ def phase_variants(params_by_dtype, dev):
             err = (got.float() - ref.float()).abs().max().item()
             scale = max(1.0, ref.float().abs().max().item())
             check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-            if dtype == torch.bfloat16:
+            if dtype == bf16:
                 check(err <= 4 * 2.0 ** -8 * scale, f"{what}: err {err}")
                 worst[group] = max(worst[group], err)
             else:
@@ -630,23 +674,43 @@ def phase_variants(params_by_dtype, dev):
                 torch.testing.assert_close(got, ref, rtol=1e-4,
                                            atol=1e-5 * (scale if partial else 1.0))
             errs.append(f"{choice} {err:.3g}")
-            if dtype == torch.bfloat16 and (group, choice) in (("abc", "b"), ("d", "d"),
-                                                                ("parts", "full")):
+            if (B, L) == timing and (group, choice) in (("abc", "b"), ("d", "d"),
+                                                        ("parts", "full")):
                 times[group] = (median_ms(lambda: fn(x, block, 8, choice)),
                                 median_ms(lambda: ref_fn(x, block, 8, choice), iters=5))
             del got, ref
-        log(f"variants vs plain {name} {B}x{L}: c bit-equal to b, {same}; max|err| "
-            + ", ".join(errs))
+        log(f"variants vs plain {name} {B}x{L}: c and b bit-equal to the fused block's exact "
+            "form; max|err| " + ", ".join(errs))
+
+    # the timing scripts: launches counted over their timed rounds only
+    x, fns, _ = script.setup(cuda_cores=False)
     tv.launches_abc = tv.launches_d = tv.launches_parts = 0
-    prof = script.profile(rounds=2)
+    prof = script.timed(x, fns, rounds=2)
     launches = {"abc": tv.launches_abc, "d": tv.launches_d, "parts": tv.launches_parts}
-    check(all(n > 0 for n in launches.values()), f"variant launches {launches}")
+    x, fns, _ = breakdown.setup()
+    tv.launches_ablate = 0
+    cuts = breakdown.timed(x, fns, rounds=2)
+    launches["ablate"] = tv.launches_ablate
+    del x, fns
+    check(all(n > 0 for n in launches.values()), f"profiling kernel launches {launches}")
     log("variants, ms per block at (2048, 250, 64) bf16, min of 2 interleaved rounds: "
         + ", ".join(f"{k} {v:.3f}" for k, v in prof["ms"].items()))
     log("stage differences, ms: "
-        + ", ".join(f"{k} +{v:.3f}" for k, v in prof["stage_delta_ms"].items()))
-    return {g: {"launches": launches[g], "err": worst[g], "ms": times[g][0],
-                "plain_ms": times[g][1]} for g in worst}, prof
+        + ", ".join(f"{k} {v:+.3f}" for k, v in prof["stage_delta_ms"].items()))
+    log("cuts, ms per two blocks at (2048, 250, 64) bf16, min of 2 interleaved rounds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cuts["ms"].items()))
+    log("full - cut, ms per two blocks: "
+        + ", ".join(f"{k} {v:+.3f}" for k, v in cuts["full_minus_cut_ms"].items()))
+    log(f"profiling kernel launches in the timed rounds: {launches}")
+    slowest = max(cut_times, key=lambda c: cut_times[c][0])
+    result = {g: {"launches": launches[g], "err": worst[g], "ms": times[g][0],
+                  "plain_ms": times[g][1]} for g in ("abc", "d", "parts")}
+    result["ablate"] = {"launches": launches["ablate"], "err": worst["ablate"],
+                        "cut": slowest, "ms": cut_times[slowest][0],
+                        "plain_ms": cut_times[slowest][1],
+                        "ms_by_cut": {c: t[0] for c, t in cut_times.items()},
+                        "plain_ms_by_cut": {c: t[1] for c, t in cut_times.items()}}
+    return result, prof, cuts
 
 
 def core_f32_digest(dev) -> str:
@@ -1080,12 +1144,10 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false",
               file=sys.stderr)
         return 3
-    if len(sys.argv) == 3 and sys.argv[1] in ("--core-f32-digest", "--digests"):
+    if len(sys.argv) == 3 and sys.argv[1] == "--digests":
         # the port as it is in another tree (its kernels build there), this script's inputs
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
-        dev = torch.device("cuda")
-        print(core_f32_digest(dev) if sys.argv[1] == "--core-f32-digest"
-              else json.dumps(digests(dev)))
+        print(json.dumps(digests(torch.device("cuda"))))
         return 0
     sys.path.insert(0, str(ROOT))
     from seq2squiggle_tpu_torch.device import resolve_device
@@ -1111,7 +1173,7 @@ def main() -> int:
     block_fwd_launches, block_bwd_launches, _, _ = phase_train_main_path(
         dev, None, epochs=2, steps=TRAIN_STEPS, resume=True)
     pair = phase_pair(params, dev)
-    variants, variant_profile = phase_variants(params, dev)
+    variants, variant_profile, cut_profile = phase_variants(params, dev)
     _, pair_launches, pair_recs = phase_main_path(dev, pair=True)
     check(len(pair_recs) == len(recs)
           and all(a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(recs, pair_recs)),
@@ -1147,6 +1209,19 @@ def main() -> int:
                 "max_abs_err": got["err"], "ms": got["ms"], "plain_ms": got["plain_ms"],
                 "bound_ms": variant_bound[0], "bound_by": variant_bound[1], "library_ms": None}
 
+    def ablate_entry():
+        got = variants["ablate"]
+        cut_bound = bound(*cut_work(2048, 250, bf16, got["cut"]), bf16)
+        return {"name": "fused_fft_block_ablate", "route": "cuda",
+                "source": "seq2squiggle_tpu_torch/csrc/fft_block_variants.cu",
+                "replaces": "seq2squiggle_tpu/ops/pallas/fft_block.py:403 (ablate=)",
+                "launches": got["launches"], "max_abs_err": got["err"], "ms": got["ms"],
+                "plain_ms": got["plain_ms"], "bound_ms": cut_bound[0], "bound_by": cut_bound[1],
+                "library_ms": None, "ms_cut": got["cut"], "ms_by_cut": got["ms_by_cut"],
+                "plain_ms_by_cut": got["plain_ms_by_cut"],
+                "ms_per_two_blocks_interleaved": cut_profile["ms"],
+                "full_minus_cut_ms": cut_profile["full_minus_cut_ms"]}
+
     kernels = {"kernels": [{
         "name": "fused_fft_block",
         "route": "cuda",
@@ -1180,6 +1255,7 @@ def main() -> int:
         variant_entry("d", "profile_d.py:95", ("b", "d", "block exact", "block shift")),
         dict(variant_entry("parts", "profile_parts2.py:109", variant_profile["stage_delta_ms"]),
              stage_delta_ms=variant_profile["stage_delta_ms"]),
+        ablate_entry(),
     ]}
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seq2squiggle_tpu"))

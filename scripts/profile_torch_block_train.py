@@ -3,7 +3,7 @@ forward, the backward and each of the backward's six launches, back to back,
 with the compile-time switch of csrc/block_train.cu turned the other way
 beside them.
 
-    python scripts/profile_torch_block_train.py [--rounds 4] [--batch 512]
+    python scripts/profile_torch_block_train.py [--rounds 4] [--batch 512] [--against CHECKOUT]
     python scripts/profile_torch_block_train.py --whole [--tree CHECKOUT]
     python scripts/profile_torch_block_train.py --relu-flips [--batch 512] [--length 250]
 
@@ -17,6 +17,9 @@ together, into build/torch_kernels/variants/:
   CUDA cores  -DS2S_BLOCK_TRAIN_CUDA_CORES=1: bfloat16 through the float32
               path's kernels (a warp per position, the weights streamed from
               L1/L2 for every position)
+  as built, <name>  with --against CHECKOUT: CHECKOUT's two files as that
+              tree's package builds them (its C interface must be this
+              tree's), to compare two trees in the same rounds on one card
 
 At (batch, 250, 64) bfloat16 with dropout scales (rate 0.2), inputs standard
 normal from numpy seed 0, the block's weights the model's init from seed 7,
@@ -70,14 +73,20 @@ LAUNCHES = 20  # per timed reading
 ULP = 2.0 ** -8
 
 
-def build_variants(_build) -> dict:
-    """name -> the ctypes library of block_train.cu + attn_core.cu with its flags."""
+def build_variants(_build, against: pathlib.Path | None = None) -> dict:
+    """name -> the ctypes library of block_train.cu + attn_core.cu with its
+    flags (and of `against`'s two files as built)."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in _build.sources() if s.name in ("block_train.cu", "attn_core.cu")]
+    names = ("block_train.cu", "attn_core.cu")
+    srcs = [str(s) for s in _build.sources() if s.name in names]
+    builds = {name: (srcs, flags) for name, flags in VARIANTS.items()}
+    if against is not None:
+        csrc = against / "seq2squiggle_tpu_torch" / "csrc"
+        builds[f"as built, {against.name}"] = ([str(csrc / n) for n in names], [])
     jobs = {}
-    for name, flags in VARIANTS.items():
-        lib = out_dir / f"block_train-{name.replace(' ', '_')}.so"
+    for name, (srcs, flags) in builds.items():
+        lib = out_dir / f"block_train-{name.replace(' ', '_').replace(',', '')}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", *srcs, "-o", str(lib)]
         jobs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
@@ -145,12 +154,13 @@ def hold(name, bt, lib, x, g, scales, weights, ref, refs) -> dict:
     return {"fwd": f_err, "gx_share_outside": x_out, "weights": w_err}
 
 
-def profile(rounds: int = 4, batch: int = 512, L: int = 250) -> dict:
+def profile(rounds: int = 4, batch: int = 512, L: int = 250,
+            against: pathlib.Path | None = None) -> dict:
     from seq2squiggle_tpu_torch.ops import _build
     from seq2squiggle_tpu_torch.ops import block_train as bt
 
     x, g, scales, weights = inputs(bt, batch, L, torch.bfloat16)
-    libs = build_variants(_build)
+    libs = build_variants(_build, against)
     ref = bt.fused_block_train_reference(x, weights, *scales, N_HEAD)
     refs = bt.fused_block_train_backward_reference(x, weights, *scales, g, N_HEAD)
     errs, fns = {}, {}
@@ -261,6 +271,8 @@ def main() -> int:
     ap.add_argument("--length", type=int, default=250)
     ap.add_argument("--tree", default=str(ROOT),
                     help="with --whole: the checkout whose package is timed")
+    ap.add_argument("--against", type=pathlib.Path,
+                    help="a checkout whose two files are built and timed beside")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -272,8 +284,12 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    mode = profile_whole if args.whole else relu_flips if args.relu_flips else profile
-    result = mode(args.rounds, args.batch, args.length)
+    if args.whole or args.relu_flips:
+        mode = profile_whole if args.whole else relu_flips
+        result = mode(args.rounds, args.batch, args.length)
+    else:
+        result = profile(args.rounds, args.batch, args.length,
+                         args.against.resolve() if args.against else None)
     if args.whole:
         print(f"tree: {tree}", flush=True)
     for name, r in result.get("relu_flips", {}).items():

@@ -2,10 +2,13 @@
 back to back, as the package builds them and with bf16 sent through the
 CUDA-core body.
 
-    python scripts/profile_torch_fft_block.py [--rounds 4] [--batch 1024]
+    python scripts/profile_torch_fft_block.py [--rounds 4] [--batch 1024] [--against CHECKOUT]
 
 csrc/fft_block.cu is built alone twice, both nvcc runs started together, into
-build/torch_kernels/variants/:
+build/torch_kernels/variants/ (three times with --against: the third is
+CHECKOUT's csrc/fft_block.cu as that tree's package builds it, named
+"tensor cores, <CHECKOUT's directory name>", to compare two trees in the same
+rounds on one card):
 
   tensor cores  as the package builds it: bf16 through csrc/block_mma.cuh (a
                 warp per 16-row slab, `mma.sync` against weights staged in
@@ -51,14 +54,19 @@ LAUNCHES = 20  # per timed reading
 ULP = 2.0 ** -8
 
 
-def build_variants(_build) -> dict:
-    """name -> the ctypes library of fft_block.cu built with its flags."""
+def build_variants(_build, against: pathlib.Path | None = None) -> dict:
+    """name -> the ctypes library of fft_block.cu built with its flags (and
+    of `against`'s fft_block.cu as built)."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = str(next(s for s in _build.sources() if s.name == "fft_block.cu"))
+    builds = {name: (src, flags) for name, flags in VARIANTS.items()}
+    if against is not None:
+        other = against / "seq2squiggle_tpu_torch" / "csrc" / "fft_block.cu"
+        builds[f"tensor cores, {against.name}"] = (str(other), [])
     jobs = {}
-    for name, flags in VARIANTS.items():
-        lib = out_dir / f"fft_block-{name.replace(' ', '_')}.so"
+    for name, (src, flags) in builds.items():
+        lib = out_dir / f"fft_block-{name.replace(' ', '_').replace(',', '')}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", src, "-o", str(lib)]
         jobs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True))
@@ -102,7 +110,7 @@ def time_ms(fn) -> float:
     return start.elapsed_time(end) / LAUNCHES
 
 
-def profile(rounds: int = 4, batch: int = 1024) -> dict:
+def profile(rounds: int = 4, batch: int = 1024, against: pathlib.Path | None = None) -> dict:
     from seq2squiggle_tpu_torch.models import fft_model
     from seq2squiggle_tpu_torch.models.weights import load_checkpoint
     from seq2squiggle_tpu_torch.ops import _build
@@ -124,7 +132,7 @@ def profile(rounds: int = 4, batch: int = 1024) -> dict:
     refs = {what: fb.fused_fft_block_reference(x, b0, N_HEAD, packed=not exact)
             for what, x, exact in one_block}
     pair_ref = fb.fused_fft_block_pair_reference(x250, b0, b1, N_HEAD, packed=True)
-    libs = build_variants(_build)
+    libs = build_variants(_build, against)
     errors, fns = {}, {}
     for name, lib in libs.items():
         errs = {}
@@ -172,6 +180,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--against", type=pathlib.Path,
+                    help="a checkout whose csrc/fft_block.cu is built and timed beside")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -181,7 +191,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = profile(args.rounds, args.batch)
+    result = profile(args.rounds, args.batch,
+                     args.against.resolve() if args.against else None)
     for name, best in result["ms"].items():
         rounds = ", ".join(f"{t:.4f}" for t in result["rounds"][name])
         print(f"{name:36s}: min {best:8.4f} ms  (rounds: {rounds})", flush=True)

@@ -31,9 +31,10 @@
 //                output, or the training backward's walk back)
 // Template choices: EXACT (the exact row max, else the Cauchy–Schwarz shift),
 // SCALES (the dropout scales s_a, s_f, each null or not), STORES (q, k, v,
-// ctx, cast(h1) and f1 to the training backward's workspace). The inference
-// block turns SCALES and STORES off. Every rounding point is where the f32
-// CUDA-core path has it.
+// ctx, cast(h1) and f1 to the training backward's workspace), CUT (a
+// profiling cut, row_mma.cuh; only fft_block_variants.cu takes one). The
+// inference block turns SCALES and STORES off. Every rounding point is where
+// the f32 CUDA-core path has it.
 //
 // Ragged L: slabs pad L to a multiple of 16. Padded rows hold finite values
 // (the biases), are never keys (`exp_block_rows` and `row_max_tile` mask
@@ -209,6 +210,12 @@ __device__ __forceinline__ void project_slab(bf16* dst, const bf16* sWp, const f
   store_packed(dst, LDA, p, all);
 }
 
+// The attention hook's default: block_rows_mma calls it only with CUT_ATTEND
+// or CUT_STAGE.
+struct NoAttend {
+  __device__ void operator()(const SlabSmem&, int, int) const {}
+};
+
 // The block's forward over the L rows at xb (ldx values apart, device or
 // shared memory) with the dynamic shared memory at smem (slab_smem_bytes(L)
 // bytes). Every thread of the block calls it. Per slab, after LN2's
@@ -224,11 +231,20 @@ __device__ __forceinline__ void project_slab(bf16* dst, const bf16* sWp, const f
 // kernels' own struct), best a kernel parameter itself: its pointers are
 // then read from the parameter bank where they are used, not held in
 // registers.
-template <bool EXACT, bool SCALES, bool STORES, typename W, typename Finish>
+// CUT: a profiling cut (row_mma.cuh), CUT_NONE on every main path. Two more
+// serve the profiling kernels: with CUT_ATTEND the caller's attend(sm, L, Lp)
+// runs in place of the attention (it writes ctx over sm.q), with CUT_STAGE
+// too and then the body returns after the attention's barrier, without the
+// tail. (Keep this one function: split into phase functions, the same code
+// compiled to other spills in the training kernels and their forward ran
+// slower; PERF.md has the numbers.)
+template <bool EXACT, bool SCALES, bool STORES, int CUT = CUT_NONE, typename W,
+          typename Finish, typename Attend = NoAttend>
 __device__ __forceinline__ void block_rows_mma(const bf16* xb, int ldx, const bf16* sab,
                                                const bf16* sfb, const W& w,
                                                const RowStores& st, int L, float inv_temp,
-                                               unsigned char* smem, Finish finish) {
+                                               unsigned char* smem, Finish finish,
+                                               Attend attend = {}) {
   const int Lp = pad_tile(L);
   const SlabSmem sm = slab_smem(smem, Lp);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -262,28 +278,56 @@ __device__ __forceinline__ void block_rows_mma(const bf16* xb, int ldx, const bf
   }
 
   // ---- ctx over q, head by head
-  {
+  static_assert(!EXACT || CUT == CUT_NONE || CUT == CUT_NOATTN || CUT == CUT_NOFFN,
+                "the exact form takes no cut of the attention");
+  if constexpr (CUT == CUT_ATTEND || CUT == CUT_STAGE) {
+    attend(sm, L, Lp);
+  } else if constexpr (CUT != CUT_NOATTN) {
     bf16* qh = sm.q + warp * DK;
     const bf16* kh = sm.k + warp * DK;
     const bf16* vh = sm.v + warp * DK;
-    const float knorm = EXACT ? 0.f : warp_max_knorm<bf16, LDA>(kh, L, lane);
-    const float scale2 = __fmul_rn(inv_temp, EXP_UNIT);
+    // the cuts of the exp take e's argument in natural units
+    constexpr bool NATURAL = CUT == CUT_NOEXP || CUT == CUT_BF16EXP;
+    const float knorm =
+        (EXACT || CUT == CUT_NOSHIFT) ? 0.f : warp_max_knorm<bf16, LDA>(kh, L, lane);
+    const float scale2 = NATURAL ? inv_temp : __fmul_rn(inv_temp, EXP_UNIT);
+    // keys that count: the TPU kernel pads L to a multiple of 8 with zero rows
+    // (here: the biases' keys), which CUT_NOMASK leaves unmasked
+    const int keys = CUT == CUT_NOMASK ? (L + 7) / 8 * 8 : L;
     for (int q0 = 0; q0 < Lp; q0 += TILE) {
       uint32_t qa[2];
       load_a<LDA>(qa, qh, q0, lane);
       float sh0, sh1, num[4], den[4];
       if constexpr (EXACT) {
         row_max_tile<LDA>(sh0, sh1, qa, kh, L, Lp, lane);
+      } else if constexpr (CUT == CUT_NOSHIFT) {
+        sh0 = sh1 = 0.f;
+      } else if constexpr (NATURAL) {
+        sh0 = row_shift(qa[0], knorm, inv_temp);
+        sh1 = row_shift(qa[1], knorm, inv_temp);
       } else {
         sh0 = row_shift2(qa[0], knorm, inv_temp);
         sh1 = row_shift2(qa[1], knorm, inv_temp);
       }
-      attend_tile<LDA, EXACT>(num, den, qa, kh, vh, L, Lp, lane, scale2, sh0, sh1);
-      const float d0 = fmaxf(den[0], DEN_MIN), d1 = fmaxf(den[2], DEN_MIN);
-      const uint32_t c0 = pack2(__fdiv_rn(num[0], d0), __fdiv_rn(num[1], d0));
-      const uint32_t c1 = pack2(__fdiv_rn(num[2], d1), __fdiv_rn(num[3], d1));
-      // the accumulator's layout is the A operand's: each lane overwrites the
-      // words of q it loaded
+      if constexpr (CUT == CUT_THIN16) {  // the score product over channels 0..15
+        if (warp >= 2)
+          attend_tile<LDA, false, CUT_THIN16>(num, den, qa, kh, vh, keys, Lp, lane, scale2, sh0,
+                                              sh1);
+        else
+          attend_tile<LDA, false>(num, den, qa, kh, vh, keys, Lp, lane, scale2, sh0, sh1);
+      } else {
+        attend_tile<LDA, EXACT, CUT>(num, den, qa, kh, vh, keys, Lp, lane, scale2, sh0, sh1);
+      }
+      uint32_t c0, c1;
+      if constexpr (CUT == CUT_NODEN) {
+        c0 = pack2(num[0], num[1]);
+        c1 = pack2(num[2], num[3]);
+      } else {
+        const float d0 = CUT == CUT_DEN_PLUS ? __fadd_rn(den[0], DEN_MIN) : fmaxf(den[0], DEN_MIN);
+        const float d1 = CUT == CUT_DEN_PLUS ? __fadd_rn(den[2], DEN_MIN) : fmaxf(den[2], DEN_MIN);
+        c0 = pack2(__fdiv_rn(num[0], d0), __fdiv_rn(num[1], d0));
+        c1 = pack2(__fdiv_rn(num[2], d1), __fdiv_rn(num[3], d1));
+      }
       uint32_t* words =
           reinterpret_cast<uint32_t*>(qh) + (q0 + (lane >> 2)) * (LDA / 2) + (lane & 3);
       words[0] = c0;
@@ -297,11 +341,14 @@ __device__ __forceinline__ void block_rows_mma(const bf16* xb, int ldx, const bf
     }
   }
   __syncthreads();
+  if constexpr (CUT == CUT_STAGE) return;
 
   // ---- the tail's weights over k and v, which no warp reads any more
   stage_matrix(sm.w + SW_WF, LDA, w.wf, D, D, tid);
-  stage_matrix(sm.w + SW_W2, LDA, w.w2, DFF, D, tid);
-  stage_matrix(sm.w + SW_W1, LDW1, w.w1, D, DFF, tid);
+  if constexpr (CUT != CUT_NOFFN) {  // CUT_NOFFN: no FFN, so Wf alone
+    stage_matrix(sm.w + SW_W2, LDA, w.w2, DFF, D, tid);
+    stage_matrix(sm.w + SW_W1, LDW1, w.w1, D, DFF, tid);
+  }
   __syncthreads();
 
   // ---- the tail, slab by slab
@@ -329,6 +376,12 @@ __device__ __forceinline__ void block_rows_mma(const bf16* xb, int ldx, const bf
         }
       }
       ln_stats_slab(z, zh1, inv1);
+    }
+    if constexpr (CUT == CUT_NOFFN) {  // finish gets LN1's zhat and 1/sigma as LN2's
+      const uint32_t relu_mask[N_CHUNKS] = {};
+      const uint32_t sfp[8][2] = {};
+      finish(s, zh1, inv1, zh1, inv1, relu_mask, sfp);
+      continue;
     }
 
     // cast(h1) as the FFN's A operands

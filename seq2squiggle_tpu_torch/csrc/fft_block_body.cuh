@@ -1,8 +1,9 @@
 // One post-LN FFT block for one batch row on the CUDA cores, as device
 // functions: the body of fft_block.cu's float32 kernels (one block and the
 // pair; bfloat16 takes block_mma.cuh's tensor-core body, except in a build
-// with -DS2S_FFT_BLOCK_CUDA_CORES=1) and of fft_block_variants.cu's profiling
-// kernels in both dtypes.
+// with -DS2S_FFT_BLOCK_CUDA_CORES=1) and of fft_block_variants.cu's float32
+// profiling kernels (bfloat16 too in a build with
+// -DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1).
 //
 //   q/k/v = cast(x Wq + bq) ...   (compute-dtype operands, f32 accumulation)
 //   ctx   = softmax(q kᵀ / √d_k) v   per head, 8 heads of d_k = 8
@@ -125,8 +126,9 @@ __device__ __forceinline__ void max_key_norms(const T* sK, int L, float* sKn) {
 
 // fc + LN1(· + residual) + FFN + LN2, one row per warp; lane holds columns
 // lane and lane + 32 of the 64-wide rows and 8 of the 256 hidden units. ctx
-// is read from sQ, which then holds cast(h1); the result goes to ob.
-template <typename T>
+// is read from sQ, which then holds cast(h1); the result goes to ob. FFN =
+// false (the profiling cut `noffn`) writes cast(h1) to ob instead and stops.
+template <typename T, bool FFN = true>
 __device__ __forceinline__ void block_tail(const T* res, T* ob, const BlockWeights<T>& w,
                                            int L, T* sQ, T* sHid) {
   const int lane = threadIdx.x & 31;
@@ -157,6 +159,11 @@ __device__ __forceinline__ void block_tail(const T* res, T* ob, const BlockWeigh
     o0 = __fadd_rn(__fadd_rn(o0, w.bf[lane]), to_f(res[t * D + lane]));
     o1 = __fadd_rn(__fadd_rn(o1, w.bf[lane + 32]), to_f(res[t * D + lane + 32]));
     layer_norm2(o0, o1, w.ln1s, w.ln1b, lane);  // o0, o1 now hold h1 (f32)
+    if constexpr (!FFN) {
+      ob[t * D + lane] = from_f<T>(o0);
+      ob[t * D + lane + 32] = from_f<T>(o1);
+      continue;
+    }
     __syncwarp();
     row[lane] = from_f<T>(o0);
     row[lane + 32] = from_f<T>(o1);

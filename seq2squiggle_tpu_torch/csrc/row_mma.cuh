@@ -45,6 +45,28 @@ using bf16 = __nv_bfloat16;
 #define S2S_ATTN_CORE_EXPF 0
 #endif
 
+// Profiling cuts of the attention and of the block: the TPU kernel's `ablate`
+// argument (fft_block.py::fused_fft_block) and variant d of its timing
+// kernels, instantiated only by fft_block_variants.cu. CUT_NONE is the block
+// as every main path runs it, and with it each `if constexpr` below compiles
+// away. In the sweep (exp_block_rows, attend_tile):
+//   CUT_THIN16    the head's scores are all 0 (the body takes this for heads
+//                 2..7; heads 0 and 1 sweep as the block does)
+//   CUT_NOEXP     e = s·scale − shift with no exp, scale and shift in natural
+//                 units (the caller passes 1/√d_k and the natural shift)
+//   CUT_BF16EXP   e = exp of (s·scale − shift) rounded to bf16, same units
+//   CUT_NODEN     no den product
+// The others act in the body (block_mma.cuh): CUT_NOSHIFT (shift 0),
+// CUT_NOMASK (keys < pad8(L) count), CUT_NODEN (ctx = cast(num)),
+// CUT_NOATTN (ctx = q), CUT_NOFFN (the output is cast(h1)), CUT_DEN_PLUS
+// (den + 1e-30 in place of the clamp: variant d), and CUT_ATTEND / CUT_STAGE
+// (the caller's own attention, and for CUT_STAGE no tail: variant a and the
+// stages of the timing kernels).
+enum Cut : int {
+  CUT_NONE = 0, CUT_NOSHIFT, CUT_THIN16, CUT_NOEXP, CUT_BF16EXP, CUT_NOMASK, CUT_NODEN,
+  CUT_NOATTN, CUT_NOFFN, CUT_DEN_PLUS, CUT_ATTEND, CUT_STAGE
+};
+
 constexpr int TILE = 16;                  // rows a warp owns; keys per step
 // exponents are kept in units of 1/EXP_UNIT: base 2 for ex2.approx
 constexpr float EXP_UNIT = S2S_ATTN_CORE_EXPF ? 1.f : 1.4426950408889634f;
@@ -138,12 +160,15 @@ __device__ __forceinline__ uint32_t exp_pair(float s0, float s1, float scale2, f
   return pack2(ex2(fmaf(s0, scale2, -shift2_0)), ex2(fmaf(s1, scale2, -shift2_1)));
 }
 
-// log2(e)·(the Cauchy–Schwarz shift) of the row whose channels c, c + 1 this
-// lane holds in `pair` (the quad holds the row's eight).
-__device__ __forceinline__ float row_shift2(uint32_t pair, float knorm, float inv_temp) {
+// The Cauchy–Schwarz shift of the row whose channels c, c + 1 this lane holds
+// in `pair` (the quad holds the row's eight); row_shift2 is log2(e) times it.
+__device__ __forceinline__ float row_shift(uint32_t pair, float knorm, float inv_temp) {
   const float lo = lo_f(pair), hi = hi_f(pair);
   const float n2 = quad_sum(fmaf(hi, hi, __fmul_rn(lo, lo)));
-  return __fmul_rn(__fmul_rn(__fmul_rn(sqrtf(n2), knorm), inv_temp), EXP_UNIT);
+  return __fmul_rn(__fmul_rn(sqrtf(n2), knorm), inv_temp);
+}
+__device__ __forceinline__ float row_shift2(uint32_t pair, float knorm, float inv_temp) {
+  return __fmul_rn(row_shift(pair, knorm, inv_temp), EXP_UNIT);
 }
 
 // The exact form's two neighbouring values of e = exp((s − m)/√d_k), m the
@@ -169,17 +194,42 @@ __device__ __forceinline__ void score_block(float c0[4], float c1[4], const uint
   mma_k8(c1, qa, kb1);
 }
 
+// The profiling cuts' e of two neighbouring scores (CUT_NOEXP, CUT_BF16EXP;
+// scale and shift in natural units), packed as exp_pair packs them.
+template <int CUT>
+__device__ __forceinline__ uint32_t exp_pair_cut(float s0, float s1, float scale, float shift) {
+  const float a0 = __fsub_rn(__fmul_rn(s0, scale), shift);
+  const float a1 = __fsub_rn(__fmul_rn(s1, scale), shift);
+  if constexpr (CUT == CUT_NOEXP) {
+    return pack2(a0, a1);
+  } else {
+    static_assert(CUT == CUT_BF16EXP, "a cut of the exp");
+    return pack2(ex2(__fmul_rn(round_cd<bf16>(a0), EXP_UNIT)),
+                 ex2(__fmul_rn(round_cd<bf16>(a1), EXP_UNIT)));
+  }
+}
+
 // e for the 16 queries of A operand `qa` against keys s0..s0+15, as the A
 // operand of m16n8k16 (queries x keys); keys >= L give 0. sh0, sh1 for query
 // rows g and g + 8: shift2 (Cauchy–Schwarz form), or with EXACT the rows'
-// largest un-tempered scores (`row_max_tile`).
-template <int LD = DK, bool EXACT = false>
+// largest un-tempered scores (`row_max_tile`). CUT: the cuts of the sweep.
+template <int LD = DK, bool EXACT = false, int CUT = CUT_NONE>
 __device__ __forceinline__ void exp_block_rows(uint32_t e[4], const uint32_t qa[2],
                                                const bf16* sK, int s0, int L, int lane,
                                                float scale2, float sh0, float sh1) {
   float c0[4], c1[4];
-  score_block<LD>(c0, c1, qa, sK, s0, lane);
-  if constexpr (EXACT) {
+  if constexpr (CUT == CUT_THIN16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c0[i] = c1[i] = 0.f;
+  } else {
+    score_block<LD>(c0, c1, qa, sK, s0, lane);
+  }
+  if constexpr (CUT == CUT_NOEXP || CUT == CUT_BF16EXP) {
+    e[0] = exp_pair_cut<CUT>(c0[0], c0[1], scale2, sh0);
+    e[1] = exp_pair_cut<CUT>(c0[2], c0[3], scale2, sh1);
+    e[2] = exp_pair_cut<CUT>(c1[0], c1[1], scale2, sh0);
+    e[3] = exp_pair_cut<CUT>(c1[2], c1[3], scale2, sh1);
+  } else if constexpr (EXACT) {
     e[0] = exp_pair_max(c0[0], c0[1], scale2, sh0, sh0);
     e[1] = exp_pair_max(c0[2], c0[3], scale2, sh1, sh1);
     e[2] = exp_pair_max(c1[0], c1[1], scale2, sh0, sh0);
@@ -228,8 +278,8 @@ __device__ __forceinline__ void row_max_tile(float& m0, float& m1, const uint32_
 
 // num = Σ e·v and den = Σ e (not yet clamped) of the 16 queries of `qa` over
 // all keys: rows g in [0], [1] and g + 8 in [2], [3]; den the same in both
-// columns. sh0, sh1 as exp_block_rows takes them.
-template <int LD = DK, bool EXACT = false>
+// columns (0 with CUT_NODEN). sh0, sh1 as exp_block_rows takes them.
+template <int LD = DK, bool EXACT = false, int CUT = CUT_NONE>
 __device__ __forceinline__ void attend_tile(float num[4], float den[4], const uint32_t qa[2],
                                             const bf16* sK, const bf16* sV, int L, int Lp,
                                             int lane, float scale2, float sh0, float sh1) {
@@ -237,10 +287,10 @@ __device__ __forceinline__ void attend_tile(float num[4], float den[4], const ui
   for (int i = 0; i < 4; ++i) num[i] = den[i] = 0.f;
   for (int s0 = 0; s0 < Lp; s0 += TILE) {
     uint32_t e[4], vt0, vt1;
-    exp_block_rows<LD, EXACT>(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
+    exp_block_rows<LD, EXACT, CUT>(e, qa, sK, s0, L, lane, scale2, sh0, sh1);
     load_rows_t<LD>(vt0, vt1, sV, s0, lane);
     mma_k16(num, e, vt0, vt1);
-    mma_k16(den, e, ONES2, ONES2);
+    if constexpr (CUT != CUT_NODEN) mma_k16(den, e, ONES2, ONES2);
   }
 }
 

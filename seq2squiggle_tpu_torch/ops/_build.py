@@ -69,10 +69,10 @@ def _lib_path() -> pathlib.Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    # the fused block, its pair and its profiling variants share one argument
+    # the fused block, its pair and its profiling kernels share one argument
     # list: x, out, weight pointers, B, L, dtype, 1/sqrt(d_k), one knob, stream
     for entry in ("s2s_fft_block", "s2s_fft_block_pair", "s2s_fft_block_abc",
-                  "s2s_fft_block_d", "s2s_fft_block_parts"):
+                  "s2s_fft_block_d", "s2s_fft_block_parts", "s2s_fft_block_ablate"):
         fn = getattr(lib, entry)
         fn.restype = c_int
         fn.argtypes = [ptr, ptr, ctypes.POINTER(ptr), c_int, c_int, c_int, ctypes.c_float,

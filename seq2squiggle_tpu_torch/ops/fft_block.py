@@ -95,11 +95,13 @@ def exact_max_attention(q, k, v, inv_temp: float):
     return (num / den).to(cd)
 
 
-def block_reference(x: torch.Tensor, block: dict, n_head: int, attention) -> torch.Tensor:
+def block_reference(x: torch.Tensor, block: dict, n_head: int, attention,
+                    ffn: bool = True) -> torch.Tensor:
     """One block in plain PyTorch around `attention(q, k, v, inv_temp)`, which
     maps (B, H, L, d_k) compute-dtype q, k, v to ctx of that shape and dtype.
     x: (B, L, D) in the compute dtype; returns (B, L, D) in float32 (the last
-    LayerNorm's own dtype)."""
+    LayerNorm's own dtype). ffn=False stops after LN1 and returns h1 (the
+    profiling cut `noffn`)."""
     (wq, bq, wk, bk, wv, bv, wf, bf, ln1s, ln1b,
      w1, b1, w2, b2, ln2s, ln2b) = (_get(block, f) for f in WEIGHT_FIELDS)
     cd = x.dtype
@@ -113,17 +115,25 @@ def block_reference(x: torch.Tensor, block: dict, n_head: int, attention) -> tor
     ctx = ctx.transpose(1, 2).reshape(B, L, D)
     o = _mm(ctx, wf.to(cd)) + bf.float()
     h1 = layer_norm({"scale": ln1s, "bias": ln1b}, o + x.float())  # f32 in, f32 out
+    if not ffn:
+        return h1
     f = torch.relu(_mm(h1.to(cd), w1.to(cd)) + b1.float()).to(cd)
     f = _mm(f, w2.to(cd)) + b2.float()
     return layer_norm({"scale": ln2s, "bias": ln2b}, f + h1)
 
 
 def fused_fft_block_reference(x: torch.Tensor, block: dict, n_head: int,
-                              packed: bool | None = None) -> torch.Tensor:
+                              packed: bool | None = None, ablate: str = "") -> torch.Tensor:
     """The plain PyTorch version of the kernel, with the kernel's numerics.
 
-    x: (B, L, D) in the compute dtype; returns (B, L, D) in x.dtype.
+    x: (B, L, D) in the compute dtype; returns (B, L, D) in x.dtype. A
+    non-empty `ablate` takes the profiling cut of that name
+    (ops/fft_block_variants.py::fused_ablate_reference).
     """
+    if ablate:
+        from .fft_block_variants import fused_ablate_reference
+
+        return fused_ablate_reference(x, block, n_head, packed, ablate)
     if packed is None:
         packed = packed_default(x.shape[1])
     attention = packed_attention_attend if packed else exact_max_attention
@@ -273,15 +283,22 @@ def _exact(packed: bool | None, L: int) -> int:
 
 
 def fused_fft_block(x: torch.Tensor, block: dict, n_head: int,
-                    packed: bool | None = None) -> torch.Tensor:
+                    packed: bool | None = None, ablate: str = "") -> torch.Tensor:
     """Apply one post-LN attention + FFN block. x: (B, L, D).
 
     A CUDA tensor runs the hand-written kernel (or raises); a CPU tensor runs
     the plain version. Block weight matrices are expected in x.dtype and
     biases / LayerNorm parameters in float32 (models.fft_model.to_device).
     packed: the softmax form (module docstring); None picks it by length.
+    ablate: "" (the block), or one of the TPU kernel's eight profiling cuts,
+    which the profiling kernels of ops/fft_block_variants.py::fused_ablate
+    run (the model never asks for one).
     """
     global launches
+    if ablate:
+        from .fft_block_variants import fused_ablate
+
+        return fused_ablate(x, block, n_head, packed, ablate)
     if not x.is_cuda:
         return fused_fft_block_reference(x, block, n_head, packed)
     check_input(x, n_head, "fused_fft_block")

@@ -1,38 +1,81 @@
-"""Profiling variants of the fused FFT block: the ports of the three Pallas
+"""Profiling kernels of the fused FFT block: the ports of the three Pallas
 timing kernels under scripts/profiling/ of the JAX package,
 
   profile_abc.py::fused    -> fused_abc(x, block, n_head, variant)   a, b, c
   profile_d.py::fused      -> fused_d(x, block, n_head, variant)     b, d
   profile_parts2.py::fused -> fused_parts(x, block, n_head, stage)   proj ... full
 
-They time what each piece of the attention costs inside the fused block
-(`scripts/profile_torch_block_variants.py` runs them on the card); the model
-never calls them. Each is one launch of `csrc/fft_block_variants.cu`: the
-CUDA-core body's projections and tail (`csrc/fft_block_body.cuh`, the float32
-fused block's) around another attention, one thread per query walking the
-heads, in both dtypes. They are bound by the issue rate of f32 loops over
-shared memory, not by device memory.
+and of the fused block's own `ablate` argument
+(seq2squiggle_tpu/ops/pallas/fft_block.py::fused_fft_block, eight cuts that
+each take one piece out of the block):
+
+  fused_fft_block(x, block, n_head, packed, ablate) -> fused_ablate(...)
+
+They time what each piece of the block costs (`scripts/profile_torch_block_
+variants.py` and `scripts/profile_torch_attn_breakdown.py` run them on the
+card); the model never calls them. Each is one launch of
+`csrc/fft_block_variants.cu`. bfloat16 runs the fused block's own tensor-core
+body (`csrc/block_mma.cuh`: weights staged in shared memory, a warp per
+16-row slab for the projections and the tail, a warp per head for the
+attention, every product `mma.sync`), so the differences between them are
+differences of the block the predict path runs; float32 runs the CUDA-core
+body (`csrc/fft_block_body.cuh`), as the float32 block does.
 
   a  softmax in f32 on the tempered scores, probabilities cast to the compute
      dtype, then probs·v cast: the form before the block's softmax was
-     restructured
-  b  the block's exact-max form (`fused_fft_block(packed=False)`, bit-equal
-     to it in float32): one exp pass cast to the compute dtype, den summed
-     from the cast values, the divide after e·v
+     restructured. On the tensor cores three passes over the keys: the row
+     max of the scores, the f32 sum of exp(s·τ − m), then p = cast(e / den)
+     as the A operand of p·v
+  b  the block's exact-max form (`fused_fft_block(packed=False)`): one exp
+     pass cast to the compute dtype, den summed from the cast values, the
+     divide after e·v. It launches the kernel of that form, bit-equal to the
+     fused block's in both dtypes
   c  b with den as a ninth column of the e·v product (v extended by a column
      of ones). On the TPU that saves a matrix product; on this card den is
-     already summed inside the e·v loop, so c's arithmetic is b's and the
-     kernel is held bit-equal to b
+     already that column (bf16: an `mma.sync` of e against a tile of ones;
+     f32: summed inside the e·v loop, fma(e, 1, den) rounding as den + e), so
+     c's arithmetic is b's and the kernel is held bit-equal to b (in bf16 it
+     launches b's kernel)
   d  the per-head Cauchy–Schwarz shift ‖q_t‖·max_s‖k_s‖/√d_k and den + 1e-30
      (the fused block's packed form clamps den at 1e-30 instead)
   stages  the block cut after proj, scores, max, exp, ctx or den; what was
      computed is folded into the output by the script's own sinks (q + k + v;
      the first d_k key columns of the scores, of scores + max, of e; num;
-     cast(num / den)), summed over the heads in f32 and tiled n_head times
-     along D. `full` is b. From scores on a stage needs L >= d_k.
+     cast(num / den)), summed over the heads in f32 in head order and tiled
+     n_head times along D. `full` is b. From scores on a stage needs
+     L >= d_k; on the tensor cores the sinks need an L x 8 f32 buffer per
+     head in shared memory, so those stages take L <= 288 in bf16.
+
+The cuts (ABLATIONS), each the function the Pallas kernel computes with that
+`ablate` in interpret mode:
+
+  noattn   ctx = q: no attention (both softmax forms)
+  noffn    the output is cast(h1), LN1's output: no FFN and no LN2, W1 and
+           W2 never staged (both softmax forms)
+  ... and six that act only in the Cauchy–Schwarz form (`_attn_packed`); in
+  the exact form (packed=False, or None at L <= 32) they are the identity, as
+  `_attn_headloop` ignores `ablate`:
+  noshift  shift = 0
+  noexp    e = s·τ − shift, no exp, cast to the compute dtype. Then den <= 0
+           is clamped to 1e-30 and ctx is near 1e30; LN1's variance
+           overflows to inf and its output is its bias: finite, not NaN
+  bf16exp  e = exp(cast(s·τ − shift)): the exp of the argument rounded to
+           the compute dtype (in float32 the identity)
+  nomask   padded key columns are not masked. The TPU kernel pads L to a
+           multiple of 8 with zero rows, whose keys and values are the
+           projections' biases; so keys below pad8(L) count here and the
+           port's own padding to 16 rows stays masked. The shift's max‖k‖
+           keeps its mask. The identity where L is a multiple of 8
+  noden    ctx = cast(num): no den and no divide
+  thin16   the score product contracts channels 0..15 only. The packed q's
+           row block h keeps only head h's channels, so heads 0 and 1 score
+           as before and heads 2..7 score 0 against every key: e =
+           exp(−shift), constant over the real keys. On the tensor cores
+           warps 2..7 skip their score `mma.sync`, so its time measures
+           skipped score work, not a matrix-unit tile width
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version, which follows the script's arithmetic line by line.
+version, which follows the Pallas code step by step.
 """
 
 from __future__ import annotations
@@ -40,19 +83,25 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .attn_core import packed_attention_attend
 from .fft_block import (
-    _mm, _weight_pointers, block_reference, check_input, cuda_core_shared_memory_bytes,
-    launch_kernel,
+    N_HEAD, _mm, _padded, _weight_pointers, block_reference, check_input,
+    cuda_core_shared_memory_bytes, exact_max_attention, launch_kernel, packed_default,
+    slab_shared_memory_bytes,
 )
 
 ABC_VARIANTS = ("a", "b", "c")
 D_VARIANTS = ("b", "d")
 STAGES = ("proj", "scores", "max", "exp", "ctx", "den", "full")
+SINK_STAGES = STAGES[1:-1]  # the stages that sum per-head sinks
+ABLATIONS = ("noshift", "thin16", "noexp", "bf16exp", "nomask", "noden", "noattn", "noffn")
+ATTENTION_CUTS = ABLATIONS[:6]  # the cuts inside the Cauchy–Schwarz attention
 
 # kernel launches by entry point; chip_smoke.py reads and resets them
 launches_abc = 0
 launches_d = 0
 launches_parts = 0
+launches_ablate = 0
 
 
 def _attn_a(q, k, v, inv_temp: float):
@@ -152,6 +201,64 @@ def fused_parts_reference(x: torch.Tensor, block: dict, n_head: int,
     return out[0]
 
 
+def _pad8(L: int) -> int:
+    return -(-L // 8) * 8
+
+
+def packed_cut_attention(q, k, v, inv_temp: float, ablate: str, L_real: int):
+    """`_attn_packed` with one of ATTENTION_CUTS, on head-split (B, H, L,
+    d_k) compute-dtype tensors whose keys from L_real on are padding.
+    Returns ctx of the same shape and dtype."""
+    cd, n_head, L = q.dtype, q.shape[1], q.shape[2]
+    s = _mm(q, k.transpose(-1, -2))  # (B, H, L, L) f32, un-tempered
+    if ablate == "thin16":  # channels 0..15: heads 0 and 1 only
+        s = torch.where(torch.arange(n_head, device=s.device)[:, None, None] < 2, s, 0.0)
+    if ablate == "noshift":
+        shift = 0.0
+    else:
+        qn = q.float().square().sum(-1, keepdim=True).sqrt()
+        kn = k[:, :, :L_real].float().square().sum(-1).amax(-1, keepdim=True).sqrt()[..., None]
+        shift = qn * kn * inv_temp
+    arg = s * inv_temp - shift
+    if ablate == "noexp":
+        e = arg
+    elif ablate == "bf16exp":
+        e = torch.exp(arg.to(cd)).float()
+    else:
+        e = torch.exp(arg)
+    if ablate != "nomask" and L_real < L:
+        e[..., L_real:] = 0.0
+    e = e.to(cd)
+    num = _mm(e, v)
+    if ablate == "noden":
+        return num.to(cd)
+    return (num / e.float().sum(-1, keepdim=True).clamp_min(1e-30)).to(cd)
+
+
+def fused_ablate_reference(x: torch.Tensor, block: dict, n_head: int,
+                           packed: bool | None = None, ablate: str = "noattn") -> torch.Tensor:
+    """The block with the cut `ablate` (one of ABLATIONS; module docstring)
+    in plain PyTorch. x: (B, L, D) in the compute dtype -> x.dtype."""
+    _check_choice(ablate, ABLATIONS, "ablate")
+    L = x.shape[1]
+    if packed is None:
+        packed = packed_default(L)
+    if ablate == "noattn":
+        def attention(q, k, v, inv_temp):
+            return q
+    elif not packed:
+        attention = exact_max_attention
+    elif ablate == "noffn":
+        attention = packed_attention_attend
+    else:
+        def attention(q, k, v, inv_temp):
+            return packed_cut_attention(q, k, v, inv_temp, ablate, L)
+    if packed and ablate == "nomask":  # the TPU kernel's zero rows up to pad8(L)
+        x = torch.nn.functional.pad(x, (0, 0, 0, _pad8(L) - L))
+    out = block_reference(x, block, n_head, attention, ffn=ablate != "noffn")
+    return out[:, :L].to(x.dtype)
+
+
 def _check_choice(value: str, choices, what: str) -> None:
     if value not in choices:
         raise ValueError(f"{what} must be one of {choices}, not {value!r}")
@@ -163,17 +270,27 @@ def _check_stage(stage: str, L: int, d_k: int) -> None:
         raise ValueError(f"stage {stage!r} sinks the first {d_k} key columns; got L={L}")
 
 
-def _launch(entry: str, x, block, n_head, option: int) -> torch.Tensor:
+def shared_memory_bytes(L: int, dtype: torch.dtype, sink: bool = False) -> int:
+    """Dynamic shared memory of one thread block of these kernels: the Python
+    twin of variants_smem_bytes in csrc/fft_block_variants.cu. bfloat16: the
+    tensor-core body's (`slab_shared_memory_bytes`), plus with `sink` (the
+    stages of SINK_STAGES) an L x 8 f32 buffer per head, L padded to 16
+    rows; float32: the CUDA-core body's."""
+    if dtype == torch.bfloat16:
+        return slab_shared_memory_bytes(L) + (N_HEAD * _padded(L) * 8 * 4 if sink else 0)
+    return cuda_core_shared_memory_bytes(L, dtype)
+
+
+def _launch(entry: str, x, block, n_head, option: int, sink: bool = False) -> torch.Tensor:
     check_input(x, n_head, entry)
     return launch_kernel(entry, x, _weight_pointers(block, x.dtype, x.device), option,
-                         check=_check_length)
+                         check=lambda L, dtype, name: _check_length(L, dtype, name, sink))
 
 
-def _check_length(L: int, dtype: torch.dtype, entry: str) -> None:
-    """The CUDA-core body's ceiling (csrc/fft_block_body.cuh), with no way
-    out to name: the variants exist only to be timed."""
-    _build.check_shared_memory(entry, L, dtype,
-                               lambda n: cuda_core_shared_memory_bytes(n, dtype))
+def _check_length(L: int, dtype: torch.dtype, entry: str, sink: bool = False) -> None:
+    """The ceiling of `shared_memory_bytes`, with no way out to name: these
+    kernels exist only to be timed."""
+    _build.check_shared_memory(entry, L, dtype, lambda n: shared_memory_bytes(n, dtype, sink))
 
 
 def fused_abc(x: torch.Tensor, block: dict, n_head: int, variant: str = "b") -> torch.Tensor:
@@ -207,7 +324,26 @@ def fused_parts(x: torch.Tensor, block: dict, n_head: int, stage: str = "full") 
     if not x.is_cuda:
         return fused_parts_reference(x, block, n_head, stage)
     _check_stage(stage, x.shape[1], x.shape[2] // n_head)
-    out = _launch("s2s_fft_block_parts", x, block, n_head, STAGES.index(stage))
+    out = _launch("s2s_fft_block_parts", x, block, n_head, STAGES.index(stage),
+                  sink=stage in SINK_STAGES)
     if x.shape[0]:
         launches_parts += 1
+    return out
+
+
+def fused_ablate(x: torch.Tensor, block: dict, n_head: int, packed: bool | None = None,
+                 ablate: str = "noattn") -> torch.Tensor:
+    """One block with the cut `ablate` (one of ABLATIONS; module docstring),
+    in the softmax form `packed` (None: by length, as the fused block).
+    x: (B, L, D). `fused_fft_block(..., ablate=...)` calls this."""
+    global launches_ablate
+    if not x.is_cuda:
+        return fused_ablate_reference(x, block, n_head, packed, ablate)
+    _check_choice(ablate, ABLATIONS, "ablate")
+    exact = not (packed_default(x.shape[1]) if packed is None else packed)
+    # the C knob: 2·(cut index + 1) + exact
+    out = _launch("s2s_fft_block_ablate", x, block, n_head,
+                  2 * (ABLATIONS.index(ablate) + 1) + int(exact))
+    if x.shape[0]:
+        launches_ablate += 1
     return out

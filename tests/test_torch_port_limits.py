@@ -27,8 +27,10 @@ the wrappers: the largest L with bytes(L) <= 232,448, bytes being
                          buffer does not fit: past L = 352)
   fused block and pair,  3·64·L·4 + 8·256·4 + 8·4 (the CUDA-core body; the
   f32                    pair's fourth L x 64 buffer fits to L = 218)
-  profiling variants     the CUDA-core body in both dtypes: 3·64·L·size +
-                         8·256·size + 8·4
+  profiling kernels      bf16 the slab body, plus for the partial stages
+  (variants, cuts)       from scores to den an L x 8 f32 sink per head, L
+                         padded to 16 rows: 8·ceil16(L)·8·4; f32 the
+                         CUDA-core body, 3·64·L·4 + 8·256·4 + 8·4
 """
 
 from __future__ import annotations
@@ -206,8 +208,8 @@ def test_pair_keeps_its_activation_on_chip_up_to_its_threshold(dtype, last_on_ch
 @pytest.mark.parametrize("dtype,ceiling", [(BF16, 464), (F32, 291)], ids=["bfloat16", "float32"])
 def test_fused_block_error_names_use_pallas_false(dtype, ceiling):
     """Past the fused block's ceiling the wrappers' ValueError names the way
-    out: the plain blocks take any length. The profiling variants, which keep
-    the CUDA-core body (bf16 to 594), name none."""
+    out: the plain blocks take any length. The profiling kernels, on the same
+    bodies (bf16 the tensor-core one, to 464), name none."""
     for name in ("s2s_fft_block", "s2s_fft_block_pair"):
         with pytest.raises(ValueError, match=re.escape(
                 f"the largest L that fits is {ceiling} (`use_pallas: false` runs longer "
@@ -215,8 +217,30 @@ def test_fused_block_error_names_use_pallas_false(dtype, ceiling):
             fb.check_length(ceiling + 1, dtype, name)
     from seq2squiggle_tpu_torch.ops import fft_block_variants as tv
 
-    variants_ceiling = 594 if dtype == BF16 else 291
+    variants_ceiling = 464 if dtype == BF16 else 291
     tv._check_length(variants_ceiling, dtype, "s2s_fft_block_abc")
     with pytest.raises(ValueError) as err:
         tv._check_length(variants_ceiling + 1, dtype, "s2s_fft_block_abc")
     assert str(err.value).endswith(f"the largest L that fits is {variants_ceiling}")
+
+
+@pytest.mark.parametrize("dtype,ceiling,n_bytes", [
+    (BF16, 288, 3 * 72 * 288 * 2 + PROJECTION_WEIGHTS + 8 * 288 * 8 * 4),
+    (F32, 291, 192 * 291 * 4 + 8 * 256 * 4 + 32),
+], ids=["bfloat16", "float32"])
+def test_profiling_stage_sinks_ceiling(dtype, ceiling, n_bytes):
+    """The partial stages from scores to den (fused_parts) keep a per-head
+    L x 8 f32 sink beside the bf16 slab body: 203,776 bytes at L = 250, and
+    the largest L that fits is 288 (variants_smem_bytes in
+    csrc/fft_block_variants.cu is the twin). proj, full, a ... d and the
+    cuts need the body alone; f32 keeps the CUDA-core body's ceiling."""
+    from seq2squiggle_tpu_torch.ops import fft_block_variants as tv
+
+    assert tv.shared_memory_bytes(ceiling, dtype, sink=True) == n_bytes <= LIMIT
+    assert tv.shared_memory_bytes(ceiling + 1, dtype, sink=True) > LIMIT
+    assert tv.shared_memory_bytes(250, BF16, sink=True) == 138_240 + 65_536 == 203_776
+    for L in (1, 250, 464):
+        assert tv.shared_memory_bytes(L, dtype) == fb.shared_memory_bytes(L, dtype)
+    tv._check_length(ceiling, dtype, "s2s_fft_block_parts", sink=True)
+    with pytest.raises(ValueError, match=re.escape(f"the largest L that fits is {ceiling}")):
+        tv._check_length(ceiling + 1, dtype, "s2s_fft_block_parts", sink=True)
