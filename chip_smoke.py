@@ -92,7 +92,12 @@ Phases (any failure raises and the script exits non-zero):
  12. the fused block's profiling kernels vs plain: each of the eight
      `ablate` cuts (`fused_fft_block(..., ablate=...)`) in both softmax forms
      at (2048, 250, 64) bf16, (3, 37) f32 and bf16 at L = 15, 16, 17 and 37
-     (slab edges; 37 pads to 40 on the TPU and to 48 here), and every variant
+     (slab edges; 37 pads to 40 on the TPU and to 48 here), in bf16 with the
+     evidence that the four cuts the bar cannot see were taken
+     (`fft_block_variants.check_cut_taken`: thin16 and nomask nearer their
+     own plain version than the uncut block's, noshift and bf16exp not
+     bit-equal to the uncut kernel, the exact form's attention cuts bit-equal
+     to it), and every variant
      (a, b, c, d) and stage (proj ... full) of ops/fft_block_variants.py at
      the same shapes (bars of phase 2; the stages' f32 atol scaled by
      max(1, max|plain|), their sinks being unnormalised sums), c and b
@@ -627,23 +632,36 @@ def phase_variants(params_by_dtype, dev):
         name = str(dtype)[6:]
         block = params_by_dtype[dtype]["decoder"]["blocks"][0]
         x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
-        errs = []
+        errs, taken = [], []
         for packed in (False, True):
+            uncut = (fb.fused_fft_block(x, block, 8, packed),
+                     fb.fused_fft_block_reference(x, block, 8, packed))
             for cut in tv.ABLATIONS:
                 got = fb.fused_fft_block(x, block, 8, packed, cut)
+                ref = fb.fused_fft_block_reference(x, block, 8, packed, cut)
                 torch.cuda.synchronize()
-                err = hold_block(f"cut {cut} {name} {B}x{L} packed={packed}", got,
-                                 fb.fused_fft_block_reference(x, block, 8, packed, cut), dtype)
-                if dtype == bf16:
+                what = f"cut {cut} {name} {B}x{L} packed={packed}"
+                err = hold_block(what, got, ref, dtype)
+                if dtype == bf16:  # the bar holds four cuts without showing them
                     worst["ablate"] = max(worst["ablate"], err)
+                    try:
+                        ratio = tv.check_cut_taken(cut, packed, L, got, ref, *uncut)
+                    except AssertionError as exc:
+                        raise AssertionError(f"{what}: {exc}") from None
+                    if ratio is not None:
+                        taken.append(f"{cut} {ratio:.2g}")
                 errs.append(err)
+                del ref
                 if (B, L) == timing and packed:
                     cut_times[cut] = (
                         median_ms(lambda: fb.fused_fft_block(x, block, 8, True, cut)),
                         median_ms(lambda: fb.fused_fft_block_reference(x, block, 8, True, cut),
                                   iters=5))
                 del got
-        log(f"cuts vs plain {name} {B}x{L}, both softmax forms: max|err| {max(errs):.3g}")
+        log(f"cuts vs plain {name} {B}x{L}, both softmax forms: max|err| {max(errs):.3g}"
+            + (f"; taken (mean|kernel - plain| / the cut's mean move): {', '.join(taken)}; "
+               "noshift and bf16exp not bit-equal to the uncut block, the exact form's "
+               "attention cuts bit-equal to it" if dtype == bf16 else ""))
 
     # a, b, c, d and the stages
     calls = ([("abc", v, tv.fused_abc, tv.fused_abc_reference) for v in tv.ABC_VARIANTS]

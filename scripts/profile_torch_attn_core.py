@@ -63,27 +63,8 @@ MUFU_PER_CLOCK = 16  # exps a clock per SM (four schedulers, four lanes each)
 
 def build_variants() -> dict:
     """name -> the ctypes library of csrc/attn_core.cu built with its flags."""
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = next(s for s in _build.sources() if s.name == "attn_core.cu")
-    jobs = {}
-    for name, flags in VARIANTS.items():
-        lib = out_dir / f"attn_core-{name.replace(' ', '_')}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", str(src), "-o", str(lib)]
-        jobs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, cmd, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{' '.join(cmd)}\n{log}")
-        ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        cdll = ctypes.CDLL(str(lib))
-        cdll.s2s_attn_core_fwd.restype = cdll.s2s_attn_core_bwd.restype = c_int
-        cdll.s2s_attn_core_fwd.argtypes = [ptr] * 4 + [c_int] * 3 + [ctypes.c_float, ptr]
-        cdll.s2s_attn_core_bwd.argtypes = [ptr] * 7 + [c_int] * 3 + [ctypes.c_float, ptr]
-        libs[name] = cdll
-    return libs
+    src = _build.sources(["attn_core.cu"])
+    return _build.build_variants({name: (src, flags) for name, flags in VARIANTS.items()})
 
 
 def _call(fn, tensors, B, L):

@@ -4,12 +4,11 @@ with the compile-time switch of csrc/block_train.cu turned the other way
 beside them.
 
     python scripts/profile_torch_block_train.py [--rounds 4] [--batch 512] [--against CHECKOUT]
-    python scripts/profile_torch_block_train.py --whole [--tree CHECKOUT]
     python scripts/profile_torch_block_train.py --relu-flips [--batch 512] [--length 250]
 
 csrc/block_train.cu is built with csrc/attn_core.cu (its backward runs the
 attention-core backward as one stage) once per variant, all nvcc runs started
-together, into build/torch_kernels/variants/:
+together, into build/torch_kernels/variants/ (`_build.build_variants`):
 
   as built    the two files as the package builds them: bfloat16 on the
               tensor cores, a warp per 16-row slab, the weights staged in
@@ -30,10 +29,6 @@ variant that disagrees raises) and then timed in interleaved rounds: CUDA
 events around 20 launches after one warm-up launch. A stage of the backward
 is launched alone on the buffers a whole call left (each reads what the
 earlier ones wrote). Reported: the minimum over the rounds and the rounds, ms.
-
---whole times only the public forward and backward, bfloat16 and float32, of
-the package in CHECKOUT (default: this checkout), so that two trees can be
-compared in one call on one card, each in its own process.
 
 --relu-flips times nothing. For each variant it counts the entries of the
 256-wide hidden layer whose relu mask differs between the kernel (f1 > 0 in
@@ -76,27 +71,11 @@ ULP = 2.0 ** -8
 def build_variants(_build, against: pathlib.Path | None = None) -> dict:
     """name -> the ctypes library of block_train.cu + attn_core.cu with its
     flags (and of `against`'s two files as built)."""
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
     names = ("block_train.cu", "attn_core.cu")
-    srcs = [str(s) for s in _build.sources() if s.name in names]
-    builds = {name: (srcs, flags) for name, flags in VARIANTS.items()}
+    builds = {name: (_build.sources(names), flags) for name, flags in VARIANTS.items()}
     if against is not None:
-        csrc = against / "seq2squiggle_tpu_torch" / "csrc"
-        builds[f"as built, {against.name}"] = ([str(csrc / n) for n in names], [])
-    jobs = {}
-    for name, (srcs, flags) in builds.items():
-        lib = out_dir / f"block_train-{name.replace(' ', '_').replace(',', '')}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", *srcs, "-o", str(lib)]
-        jobs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, cmd, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{' '.join(cmd)}\n{log}")
-        libs[name] = _build.bind_block_train(ctypes.CDLL(str(lib)))
-    return libs
+        builds[f"as built, {against.name}"] = (_build.sources(names, against), [])
+    return _build.build_variants(builds)
 
 
 def time_ms(fn) -> float:
@@ -242,56 +221,31 @@ def relu_flips(rounds: int = 0, batch: int = 512, L: int = 250) -> dict:
             "relu_flips": out}
 
 
-def profile_whole(rounds: int = 4, batch: int = 512, L: int = 250) -> dict:
-    """The public forward and backward of the package on sys.path, both dtypes."""
-    from seq2squiggle_tpu_torch.ops import block_train as bt
-
-    fns = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        x, g, scales, weights = inputs(bt, batch, L, dtype)
-        name = str(dtype)[6:]
-        fns[f"fwd {name}"] = lambda a=(x, weights, *scales): bt.fused_block_train_forward(
-            *a, N_HEAD)
-        fns[f"bwd {name}"] = lambda a=(x, weights, *scales, g): bt.fused_block_train_backward(
-            *a, N_HEAD)
-    readings = interleaved(fns, rounds)
-    return {"shape": [batch, L, 64], "dropout_scales": True, "launches_per_reading": LAUNCHES,
-            "ms": {name: min(times) for name, times in readings.items()}, "rounds": readings}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--batch", type=int, default=512)
-    ap.add_argument("--whole", action="store_true",
-                    help="time only the public forward and backward, bfloat16 and float32")
     ap.add_argument("--relu-flips", action="store_true",
                     help="count the relu masks that differ from the plain version's, and the "
                          "weight gradients' error with and without their positions")
     ap.add_argument("--length", type=int, default=250)
-    ap.add_argument("--tree", default=str(ROOT),
-                    help="with --whole: the checkout whose package is timed")
     ap.add_argument("--against", type=pathlib.Path,
                     help="a checkout whose two files are built and timed beside")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    tree = pathlib.Path(args.tree).resolve() if args.whole else ROOT
-    sys.path.insert(0, str(tree))
+    sys.path.insert(0, str(ROOT))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    if args.whole or args.relu_flips:
-        mode = profile_whole if args.whole else relu_flips
-        result = mode(args.rounds, args.batch, args.length)
+    if args.relu_flips:
+        result = relu_flips(args.rounds, args.batch, args.length)
     else:
         result = profile(args.rounds, args.batch, args.length,
                          args.against.resolve() if args.against else None)
-    if args.whole:
-        print(f"tree: {tree}", flush=True)
     for name, r in result.get("relu_flips", {}).items():
         e, k = r["errors"], r["errors_without_those_positions"]
         print(f"{name:24s}: {r['flipped_entries']} of {r['entries']} masks flipped, at "
@@ -303,7 +257,7 @@ def main() -> int:
     for name, best in result.get("ms", {}).items():
         rounds = ", ".join(f"{t:.4f}" for t in result["rounds"][name])
         print(f"{name:44s}: min {best:8.4f} ms  (rounds: {rounds})", flush=True)
-    print(json.dumps({"card": card, "tree": str(tree), "torch": torch.__version__,
+    print(json.dumps({"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda, **result}), flush=True)
     return 0
 

@@ -24,7 +24,7 @@ per kernel: the minimum over the rounds, in ms per block, and the rounds.
 Two designs: the package's (bfloat16 on the fused block's tensor-core body,
 csrc/block_mma.cuh), and, suffixed "CUDA cores", csrc/fft_block_variants.cu
 built alone with -DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1 into
-build/torch_kernels/variants/ (bfloat16 through the CUDA-core kernels of the
+build/torch_kernels/variants/ (`_build.build_variants`; bfloat16 through the CUDA-core kernels of the
 float32 path, which only this script builds), held against the same plain
 versions and timed in the same rounds.
 
@@ -35,9 +35,7 @@ line one JSON object with every number.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import math
 import pathlib
 import subprocess
 import sys
@@ -62,38 +60,11 @@ CUDA_CORES = " CUDA cores"  # the suffix of the CUDA-core build's kernels
 ENTRIES = ("s2s_fft_block_abc", "s2s_fft_block_d", "s2s_fft_block_parts")
 
 
-def build_cuda_cores() -> ctypes.CDLL:
+def build_cuda_cores():
     """csrc/fft_block_variants.cu alone, bfloat16 through the CUDA-core kernels."""
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = str(next(s for s in _build.sources() if s.name == "fft_block_variants.cu"))
-    lib = out_dir / "fft_block_variants-CUDA_cores.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1", "-shared",
-           src, "-o", str(lib)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{done.stdout}{done.stderr}")
-    c = ctypes.CDLL(str(lib))
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    for entry in ENTRIES:
-        fn = getattr(c, entry)
-        fn.restype = c_int
-        fn.argtypes = [ptr, ptr, ctypes.POINTER(ptr), c_int, c_int, c_int, ctypes.c_float, c_int,
-                       ptr]
-    return c
-
-
-def run(lib, entry: str, x: torch.Tensor, ptrs, option: int) -> torch.Tensor:
-    """One bf16 launch of `entry` of `lib` (s2s_fft_block's arguments)."""
-    B, L, D = x.shape
-    out = torch.empty_like(x)
-    err = getattr(lib, entry)(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), ptrs, B, L, 0,
-        1.0 / math.sqrt(D // N_HEAD), option,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: {err}")
-    return out
+    return _build.build_variants({"CUDA cores": (
+        _build.sources(["fft_block_variants.cu"]),
+        ["-DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1"])})["CUDA cores"]
 
 
 def kernels(block, cuda_cores=None) -> dict:
@@ -113,7 +84,7 @@ def kernels(block, cuda_cores=None) -> dict:
                  + [(st, ENTRIES[2], i) for i, st in enumerate(tv.STAGES)])
         for name, entry, option in calls:
             fns[name + CUDA_CORES] = (lambda x, e=entry, o=option:
-                                      run(cuda_cores, e, x, ptrs, o))
+                                      fb.launch_kernel(e, x, ptrs, o, lib=cuda_cores))
     return fns
 
 

@@ -5,10 +5,10 @@ CUDA-core body.
     python scripts/profile_torch_fft_block.py [--rounds 4] [--batch 1024] [--against CHECKOUT]
 
 csrc/fft_block.cu is built alone twice, both nvcc runs started together, into
-build/torch_kernels/variants/ (three times with --against: the third is
-CHECKOUT's csrc/fft_block.cu as that tree's package builds it, named
-"tensor cores, <CHECKOUT's directory name>", to compare two trees in the same
-rounds on one card):
+build/torch_kernels/variants/ (`_build.build_variants`; three times with
+--against: the third is CHECKOUT's csrc/fft_block.cu as that tree's package
+builds it, named "tensor cores, <CHECKOUT's directory name>", to compare two
+trees in the same rounds on one card):
 
   tensor cores  as the package builds it: bf16 through csrc/block_mma.cuh (a
                 warp per 16-row slab, `mma.sync` against weights staged in
@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import pathlib
 import subprocess
 import sys
@@ -57,45 +56,10 @@ ULP = 2.0 ** -8
 def build_variants(_build, against: pathlib.Path | None = None) -> dict:
     """name -> the ctypes library of fft_block.cu built with its flags (and
     of `against`'s fft_block.cu as built)."""
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = str(next(s for s in _build.sources() if s.name == "fft_block.cu"))
-    builds = {name: (src, flags) for name, flags in VARIANTS.items()}
+    builds = {name: (_build.sources(["fft_block.cu"]), flags) for name, flags in VARIANTS.items()}
     if against is not None:
-        other = against / "seq2squiggle_tpu_torch" / "csrc" / "fft_block.cu"
-        builds[f"tensor cores, {against.name}"] = (str(other), [])
-    jobs = {}
-    for name, (src, flags) in builds.items():
-        lib = out_dir / f"fft_block-{name.replace(' ', '_').replace(',', '')}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", src, "-o", str(lib)]
-        jobs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, cmd, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{' '.join(cmd)}\n{log}")
-        c = ctypes.CDLL(str(lib))
-        ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        for entry in ("s2s_fft_block", "s2s_fft_block_pair"):
-            fn = getattr(c, entry)
-            fn.restype = c_int
-            fn.argtypes = [ptr, ptr, ctypes.POINTER(ptr), c_int, c_int, c_int, ctypes.c_float,
-                           c_int, ptr]
-        libs[name] = c
-    return libs
-
-
-def run(lib, entry: str, x: torch.Tensor, ptrs, exact: bool, out: torch.Tensor) -> torch.Tensor:
-    """One launch of `entry` of `lib` on x into out (s2s_fft_block's arguments)."""
-    B, L, D = x.shape
-    err = getattr(lib, entry)(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), ptrs, B, L, 0,
-        1.0 / math.sqrt(D // N_HEAD), int(exact),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: {err}")
-    return out
+        builds[f"tensor cores, {against.name}"] = (_build.sources(["fft_block.cu"], against), [])
+    return _build.build_variants(builds)
 
 
 def time_ms(fn) -> float:
@@ -124,8 +88,10 @@ def profile(rounds: int = 4, batch: int = 1024, against: pathlib.Path | None = N
     rng = np.random.default_rng(0)
     x250, x16 = (torch.from_numpy(rng.standard_normal((batch, L, 64)).astype(np.float32))
                  .to(dev, torch.bfloat16) for L in (250, 16))
-    out250, out16 = torch.empty_like(x250), torch.empty_like(x16)
-    mid = torch.empty_like(x250)
+
+    def run(lib, entry, x, ptrs, exact):
+        return fb.launch_kernel(entry, x, ptrs, int(exact), lib=lib)
+
     # (what, x, exact)
     one_block = [("one block 250 shift", x250, False), ("one block 250 exact", x250, True),
                  ("one block 16 exact", x16, True)]
@@ -137,23 +103,20 @@ def profile(rounds: int = 4, batch: int = 1024, against: pathlib.Path | None = N
     for name, lib in libs.items():
         errs = {}
         for what, x, exact in one_block:
-            got = run(lib, "s2s_fft_block", x, p0, exact, torch.empty_like(x))
+            got = run(lib, "s2s_fft_block", x, p0, exact)
             torch.cuda.synchronize()
             errs[what] = hold(f"{name}: {what}", got, refs[what])
-            out = out16 if x is x16 else out250
             fns[f"{what}: {name}"] = (
-                lambda lib=lib, x=x, exact=exact, out=out: run(lib, "s2s_fft_block", x, p0,
-                                                               exact, out))
-        pair = run(lib, "s2s_fft_block_pair", x250, both, False, torch.empty_like(x250))
-        two = run(lib, "s2s_fft_block", run(lib, "s2s_fft_block", x250, p0, False, mid), p1,
-                  False, torch.empty_like(x250))
+                lambda lib=lib, x=x, exact=exact: run(lib, "s2s_fft_block", x, p0, exact))
+        pair = run(lib, "s2s_fft_block_pair", x250, both, False)
+        two = run(lib, "s2s_fft_block", run(lib, "s2s_fft_block", x250, p0, False), p1, False)
         torch.cuda.synchronize()
         if not torch.equal(pair, two):
             raise AssertionError(f"{name}: the pair is not bit-equal to two one-block launches")
         errs["pair 250 shift"] = hold(f"{name}: pair", pair, pair_ref)
         errors[name] = errs
         fns[f"pair 250 shift: {name}"] = lambda lib=lib: run(lib, "s2s_fft_block_pair", x250,
-                                                             both, False, out250)
+                                                             both, False)
     del refs, pair_ref
     readings = {name: [] for name in fns}
     for _ in range(rounds):

@@ -195,11 +195,15 @@ __device__ __forceinline__ void score_block(float c0[4], float c1[4], const uint
 }
 
 // The profiling cuts' e of two neighbouring scores (CUT_NOEXP, CUT_BF16EXP;
-// scale and shift in natural units), packed as exp_pair packs them.
+// scale and shift in natural units), packed as exp_pair packs them. The
+// argument is exp_pair's one FFMA, in the units the cut rounds in: noexp then
+// differs from the uncut sweep by the ex2 alone; bf16exp by the argument's
+// round trip through bf16 and the multiply by log2(e) that rounding in
+// natural units puts after it.
 template <int CUT>
 __device__ __forceinline__ uint32_t exp_pair_cut(float s0, float s1, float scale, float shift) {
-  const float a0 = __fsub_rn(__fmul_rn(s0, scale), shift);
-  const float a1 = __fsub_rn(__fmul_rn(s1, scale), shift);
+  const float a0 = fmaf(s0, scale, -shift);
+  const float a1 = fmaf(s1, scale, -shift);
   if constexpr (CUT == CUT_NOEXP) {
     return pack2(a0, a1);
   } else {

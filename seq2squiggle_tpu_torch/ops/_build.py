@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -46,8 +47,11 @@ build_seconds = None  # wall time of this process's build, for chip_smoke.py
 build_log = ""  # nvcc's output (registers, shared memory, spills)
 
 
-def sources():
-    return sorted(_CSRC.glob("*.cu"))
+def sources(names=None, tree: pathlib.Path | None = None) -> list:
+    """The package's `csrc/*.cu` (only `names`, where given), or those of the
+    package in another checkout `tree`."""
+    csrc = _CSRC if tree is None else pathlib.Path(tree) / "seq2squiggle_tpu_torch" / "csrc"
+    return [s for s in sorted(csrc.glob("*.cu")) if names is None or s.name in names]
 
 
 def _nvcc() -> str:
@@ -67,42 +71,61 @@ def _lib_path() -> pathlib.Path:
     return BUILD_DIR / f"libs2s_kernels-{h.hexdigest()[:16]}.so"
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+def _entries() -> dict:
+    """C entry point -> (restype, argtypes), for every source of csrc/."""
+    ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptrs = ctypes.POINTER(ptr)
     # the fused block, its pair and its profiling kernels share one argument
     # list: x, out, weight pointers, B, L, dtype, 1/sqrt(d_k), one knob, stream
-    for entry in ("s2s_fft_block", "s2s_fft_block_pair", "s2s_fft_block_abc",
-                  "s2s_fft_block_d", "s2s_fft_block_parts", "s2s_fft_block_ablate"):
-        fn = getattr(lib, entry)
-        fn.restype = c_int
-        fn.argtypes = [ptr, ptr, ctypes.POINTER(ptr), c_int, c_int, c_int, ctypes.c_float,
-                       c_int, ptr]
-    lib.s2s_attn_core_fwd.restype = c_int
-    lib.s2s_attn_core_fwd.argtypes = [ptr, ptr, ptr, ptr, c_int, c_int, c_int,
-                                      ctypes.c_float, ptr]
-    lib.s2s_attn_core_bwd.restype = c_int
-    lib.s2s_attn_core_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, c_int, c_int,
-                                      c_int, ctypes.c_float, ptr]
-    bind_block_train(lib)
-    lib.s2s_error_string.restype = ctypes.c_char_p
-    lib.s2s_error_string.argtypes = [ctypes.c_int]
+    block = [ptr, ptr, ptrs, c_int, c_int, c_int, c_float, c_int, ptr]
+    table = {entry: (c_int, block) for entry in (
+        "s2s_fft_block", "s2s_fft_block_pair", "s2s_fft_block_abc", "s2s_fft_block_d",
+        "s2s_fft_block_parts", "s2s_fft_block_ablate")}
+    table.update({
+        "s2s_attn_core_fwd": (c_int, [ptr] * 4 + [c_int] * 3 + [c_float, ptr]),
+        "s2s_attn_core_bwd": (c_int, [ptr] * 7 + [c_int] * 3 + [c_float, ptr]),
+        "s2s_block_train_workspace": (None, [c_int, c_int, ctypes.POINTER(ctypes.c_longlong)]),
+        "s2s_block_train_fwd": (c_int, [ptr] * 4 + [ptrs, ptr, c_int, c_int, c_int, c_float, ptr]),
+        "s2s_block_train_bwd": (c_int, [ptr] * 6 + [ptrs] + [ptr] * 3
+                                + [c_int, c_int, c_int, c_float, c_int, ptr]),
+        "s2s_error_string": (ctypes.c_char_p, [c_int]),
+    })
+    return table
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every entry point `lib` exports
+    (the package's library has them all; a library built from some of the
+    sources has theirs)."""
+    for entry, (restype, argtypes) in _entries().items():
+        if hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.restype, fn.argtypes = restype, argtypes
     return lib
 
 
-def bind_block_train(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """The entry points of csrc/block_train.cu (also for a library that
-    scripts/profile_torch_block_train.py built from that file alone)."""
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    ptrs = ctypes.POINTER(ptr)
-    lib.s2s_block_train_workspace.restype = None
-    lib.s2s_block_train_workspace.argtypes = [c_int, c_int, ctypes.POINTER(ctypes.c_longlong)]
-    lib.s2s_block_train_fwd.restype = c_int
-    lib.s2s_block_train_fwd.argtypes = [ptr, ptr, ptr, ptr, ptrs, ptr, c_int, c_int, c_int,
-                                        ctypes.c_float, ptr]
-    lib.s2s_block_train_bwd.restype = c_int
-    lib.s2s_block_train_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptrs, ptr, ptr, ptr,
-                                        c_int, c_int, c_int, ctypes.c_float, c_int, ptr]
-    return lib
+def build_variants(builds: dict) -> dict:
+    """Builds for the timing scripts beside the package's library: name ->
+    (sources, extra nvcc flags), each linked alone into one shared library
+    under BUILD_DIR/variants/, one nvcc per build, all started together.
+    Returns name -> the loaded library, bound like the package's. Raises if
+    a build fails."""
+    out_dir = BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, (srcs, flags) in builds.items():
+        stem = "-".join(pathlib.Path(s).stem for s in srcs)
+        lib = out_dir / f"{stem}-{re.sub(r'[^A-Za-z0-9.]+', '_', name)}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-shared", *map(str, srcs), "-o", str(lib)]
+        jobs[name] = (lib, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, cmd, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name!r}:\n{' '.join(cmd)}\n{log}")
+        libs[name] = _bind(ctypes.CDLL(str(lib)))
+    return libs
 
 
 def _compile(out: pathlib.Path) -> None:
@@ -176,5 +199,6 @@ def check_shared_memory(kernel: str, L: int, dtype, need, hint: str = "") -> Non
         + (f" ({hint})" if hint else ""))
 
 
-def error_string(code: int) -> str:
-    return f"{code} ({load().s2s_error_string(code).decode()})"
+def error_string(code: int, lib: ctypes.CDLL | None = None) -> str:
+    lib = lib if lib is not None and hasattr(lib, "s2s_error_string") else load()
+    return f"{code} ({lib.s2s_error_string(code).decode()})"

@@ -268,7 +268,7 @@ def _workspace(lib, x):
 
 def _launch_fwd(x, weights, s_a, s_f, n_head: int, lib=None) -> torch.Tensor:
     """lib: another build of csrc/block_train.cu than the package's (the
-    profiling script's), bound with `_build.bind_block_train`."""
+    profiling script's, `_build.build_variants`)."""
     global launches_fwd
     _check(x, weights, s_a, s_f, n_head)
     B, L, D = x.shape
@@ -283,7 +283,7 @@ def _launch_fwd(x, weights, s_a, s_f, n_head: int, lib=None) -> torch.Tensor:
         B, L, _DTYPE_CODES[x.dtype], 1.0 / math.sqrt(D // n_head),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
-        raise RuntimeError(f"block-train forward launch failed: {_build.error_string(err)}")
+        raise RuntimeError(f"block-train forward launch failed: {_build.error_string(err, lib)}")
     launches_fwd += 1
     return out
 
@@ -333,7 +333,7 @@ def _launch_bwd(x, weights, s_a, s_f, g, n_head: int, lib=None, stage_launchers=
             B, L, _DTYPE_CODES[x.dtype], 1.0 / math.sqrt(D // n_head), stages,
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
         if err != 0:
-            raise RuntimeError(f"block-train backward launch failed: {_build.error_string(err)}")
+            raise RuntimeError(f"block-train backward launch failed: {_build.error_string(err, lib)}")
 
     launch(_ALL_STAGES)
     launches_bwd += 1

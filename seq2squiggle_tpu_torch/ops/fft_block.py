@@ -255,18 +255,19 @@ def check_length(L: int, dtype: torch.dtype, name: str = "fused_fft_block") -> N
 
 
 def launch_kernel(entry: str, x: torch.Tensor, ptrs, option: int,
-                  check=check_length) -> torch.Tensor:
+                  check=check_length, lib=None) -> torch.Tensor:
     """Run the C entry point `entry` (s2s_fft_block's argument list) on x with
     the weight pointer array `ptrs`; `option` is its one integer knob. Raises
     if the sequence does not fit in shared memory (`check(L, dtype, entry)`)
-    or the launch is refused. The caller counts the launch."""
+    or the launch is refused. The caller counts the launch. lib: another
+    build than the package's (a timing script's, `_build.build_variants`)."""
     B, L, _ = x.shape
     check(L, x.dtype, entry)
     x = x.contiguous()
     out = torch.empty_like(x)
     if B == 0:
         return out
-    lib = _build.load()
+    lib = lib or _build.load()
     err = getattr(lib, entry)(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), ptrs,
         ctypes.c_int(B), ctypes.c_int(L), ctypes.c_int(_DTYPE_CODES[x.dtype]),
@@ -274,7 +275,7 @@ def launch_kernel(entry: str, x: torch.Tensor, ptrs, option: int,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: {_build.error_string(err)}")
+        raise RuntimeError(f"{entry} launch failed: {_build.error_string(err, lib)}")
     return out
 
 

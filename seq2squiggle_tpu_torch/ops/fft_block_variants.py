@@ -347,3 +347,41 @@ def fused_ablate(x: torch.Tensor, block: dict, n_head: int, packed: bool | None 
     if x.shape[0]:
         launches_ablate += 1
     return out
+
+
+# the cuts that move the bf16 block's output by less than its bar (4 bf16 ULPs)
+QUIET_CUTS = ("noshift", "bf16exp", "nomask", "thin16")
+
+
+def check_cut_taken(cut: str, packed: bool, L: int, got, ref, uncut_got, uncut_ref):
+    """Evidence that a bf16 cut kernel took its cut, where the output bar
+    cannot show it (QUIET_CUTS). got, ref: the cut's kernel output and plain
+    version; uncut_got, uncut_ref: the uncut block's, in the same softmax
+    form, on the same x. Raises AssertionError where the evidence fails.
+
+    - exact form: the attention cuts launch the uncut kernel: bit-equal to it;
+    - noshift, bf16exp (a change of rounding only): not bit-equal to it;
+    - thin16, and nomask where the biases' keys are 5 % of the keys or more
+      (L = 37: 3 of 40; at L = 250, 6 of 256, the cut moves the output by
+      less than the kernel's rounding): mean|got − ref| under half of
+      mean|ref − uncut_ref|, so the kernel is nearer its own plain version
+      than the uncut one. Returns that ratio (else None)."""
+    if cut not in QUIET_CUTS:
+        return None
+    if not packed:
+        if not torch.equal(got, uncut_got):
+            raise AssertionError(f"{cut}, exact form: not bit-equal to the uncut block")
+        return None
+    if cut in ("noshift", "bf16exp"):
+        if torch.equal(got, uncut_got):
+            raise AssertionError(f"{cut}: bit-equal to the uncut block")
+        return None
+    pad = _pad8(L) - L
+    if cut == "nomask" and 20 * pad < _pad8(L):
+        return None
+    moved = (ref.float() - uncut_ref.float()).abs().mean().item()
+    off = (got.float() - ref.float()).abs().mean().item()
+    if not off < 0.5 * moved:
+        raise AssertionError(f"{cut} at L = {L}: mean|kernel - plain| {off:.3g} is not under "
+                             f"half of the cut's mean move {moved:.3g}")
+    return off / moved

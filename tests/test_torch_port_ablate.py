@@ -169,11 +169,54 @@ def test_unknown_cut_raises_and_the_cpu_launches_nothing(block):
     assert tv.launches_ablate == before
 
 
+@pytest.fixture(scope="module")
+def quiet_cuts(block):
+    """bf16 (3, 37, 64) x from numpy seed 37, the block in bf16, and its plain
+    outputs: {cut: out} in the Cauchy–Schwarz form ("" the uncut block)."""
+    _, tb = block
+    b = tmodel.to_device({"decoder": {"blocks": [tb]}}, torch.device("cpu"),
+                         torch.bfloat16)["decoder"]["blocks"][0]
+    x = torch.from_numpy(np.random.default_rng(37).standard_normal((3, 37, 64))
+                         .astype(np.float32)).to(torch.bfloat16)
+    outs = {cut: tfused.fused_fft_block_reference(x, b, 8, True, cut)
+            for cut in ("", *tv.QUIET_CUTS)}
+    return x, b, outs
+
+
+@pytest.mark.parametrize("cut", tv.QUIET_CUTS)
+def test_check_cut_taken_refuses_a_skipped_cut(quiet_cuts, cut):
+    """The card's evidence for the four cuts inside the bf16 bar passes the
+    plain version of the cut and refuses the uncut block in its place."""
+    _, _, outs = quiet_cuts
+    uncut = outs[""]
+    ratio = tv.check_cut_taken(cut, True, 37, outs[cut], outs[cut], uncut, uncut)
+    assert ratio in (None, 0.0)
+    with pytest.raises(AssertionError):
+        tv.check_cut_taken(cut, True, 37, uncut, outs[cut], uncut, uncut)
+
+
+def test_check_cut_taken_refuses_a_wrong_cut(quiet_cuts):
+    """nomask counting the keys up to the port's padding to 16 rows (48 at
+    L = 37) instead of the TPU kernel's 8 (40); and an attention cut that
+    changes the exact form, where it must launch the uncut block."""
+    x, b, outs = quiet_cuts
+    x48 = torch.nn.functional.pad(x, (0, 0, 0, 48 - 37))
+    pad16 = tfused.fused_fft_block_reference(x48, b, 8, True, "nomask")[:, :37]
+    with pytest.raises(AssertionError):
+        tv.check_cut_taken("nomask", True, 37, pad16, outs["nomask"], outs[""], outs[""])
+    exact = tfused.fused_fft_block_reference(x, b, 8, False)
+    assert tv.check_cut_taken("thin16", False, 37, exact, exact, exact, exact) is None
+    with pytest.raises(AssertionError):
+        tv.check_cut_taken("thin16", False, 37, outs["thin16"], exact, exact, exact)
+
+
 @pytest.mark.gpu
 def test_cut_kernels_match_plain_on_the_card(block):
     """Each cut's kernel against its plain version at the slab edges and at
     L = 37 and 250, both softmax forms and dtypes (chip_smoke.py phase 12 runs
-    the same at the timing shape): bars as above."""
+    the same at the timing shape): bars as above; in bf16, where the bar
+    cannot show a cut, `fft_block_variants.check_cut_taken`'s evidence that
+    the kernel took it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -184,7 +227,11 @@ def test_cut_kernels_match_plain_on_the_card(block):
             x = torch.from_numpy(np.random.default_rng(L).standard_normal((3, L, 64))
                                  .astype(np.float32)).to(dev, td)
             for packed in (False, True):
+                uncut = (tfused.fused_fft_block(x, b, 8, packed),
+                         tfused.fused_fft_block_reference(x, b, 8, packed))
                 for cut in tv.ABLATIONS:
                     got = tfused.fused_fft_block(x, b, 8, packed, cut)
                     ref = tfused.fused_fft_block_reference(x, b, 8, packed, cut)
                     _hold(got.cpu(), ref.float().cpu().numpy(), str(td)[6:])
+                    if td == torch.bfloat16:
+                        tv.check_cut_taken(cut, packed, L, got, ref, *uncut)
