@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card's name and power limit, torch and CUDA versions, and
-     the kernel build from csrc/ (one nvcc per source, sm_90a) with its time;
+     the kernel build from csrc/ (one nvcc per source, sm_90a) with its time,
+     beside it the wire decoders' C++ codec (io/native, g++);
   2. fused block vs plain: the hand-written fused FFT-block kernel against
      its plain PyTorch version on the same inputs, at the predict path's
      shapes (1024 x 16 and 1024 x 250, d_model 64), at batch 3 at L = 16,
@@ -25,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
      equal, samples within 4 bf16 ULPs of the decoder output in counts, + 1);
   4. predict main path: `simulate_run` on the GPU with the committed R10
      weights, the default bf16 config and batch size 1024, reference mode
-     over a synthetic genome made from a fixed seed; the BLOW5 is read back
+     over a synthetic genome made from a fixed seed, at the default
+     --wire-format auto (the ULP tier in bf16); the BLOW5 is read back
      and the kernel must have been launched 4 times per batch (and the pair
      kernel never);
   5. attention-core kernels vs plain: forward and backward at the training
@@ -112,7 +114,18 @@ Phases (any failure raises and the script exits non-zero):
      BLOW5 equal record for record to phase 4's; then a small POD5 run (where
      the machine has pyarrow and zstandard, which the POD5 writer needs on the
      host; reported as not made otherwise) and a small R9-profile (k = 6) run
-     on the card, each read back.
+     on the card, each read back;
+ 14. wire formats on the card: each packed tier's packer (2, 4, 8, 12 bits)
+     on the card against the same packer on the CPU fed the card's inputs
+     (bit-equal framed bytes); phase 4's run again at raw and at auto, with
+     the default noise (same reads and sample counts, every sample within 1
+     count, >= 90 % equal; phase 4's records equal to this auto run's) and
+     with --noise-std 0 (bit-equal); 8 and 12 bits bit-equal to raw; a run
+     whose noise (--noise-std 20) overflows int8 deltas, started at 8 bits,
+     steps down to 12 or 16 and equals its raw run; every packed batch
+     decoded by the C++ codec; the tier each run settled on, bytes per row,
+     the stage timers per batch at auto and raw and each run's kSamples/s
+     printed beside the card's name and power limit.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches on its main path (for the profiling kernels: in their timing
@@ -240,9 +253,24 @@ def phase_device():
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    import threading
+
+    from seq2squiggle_tpu_torch.io.native.build import load_native
+
+    codec = {}
+
+    def build_codec():  # the wire decoders' C++, beside nvcc's builds
+        t = time.perf_counter()
+        codec["lib"], codec["s"] = load_native(), time.perf_counter() - t
+
+    thread = threading.Thread(target=build_codec)
+    thread.start()
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)")
+    thread.join()
+    check(codec["lib"] is not None, "the C++ codec (io/native/slow5_codec.cc) did not build")
+    log(f"C++ codec build (g++, nvcc's host compiler): {codec['s']:.2f} s")
     kernel = "?"
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
@@ -503,7 +531,7 @@ def _check_records(what, stats, recs, n_reads):
 def phase_main_path(dev, pair: bool):
     """Phases 4 and 13: `simulate_run` at full width with the launch counters
     reset just before and read just after. Returns (one-block launches, pair
-    launches, the records read back)."""
+    launches, the records read back, the run's stats)."""
     from seq2squiggle_tpu_torch.config import load_config
 
     n_reads = 100
@@ -520,7 +548,7 @@ def phase_main_path(dev, pair: bool):
         f"batches, {stats['samples']} samples in {stats['seconds']:.3f} s "
         f"({stats['ksamples_per_s']:.1f} kSamples/s), fused_fft_block launches {launches}, "
         f"fused_fft_block_pair launches {pair_launches}")
-    return launches, pair_launches, recs
+    return launches, pair_launches, recs, stats
 
 
 def phase_other_modes(dev):
@@ -545,6 +573,135 @@ def phase_other_modes(dev):
         check(launches == 4 * math.ceil(stats["chunks"] / BATCH), f"{what}: {launches} launches")
         log(f"{what}: {stats['reads']} reads, {stats['samples']} samples read back from "
             f"{out_name}, fused_fft_block launches {launches}")
+
+
+def hold_packers(host_params, dev, B: int = BATCH) -> dict:
+    """Phase 14's packer check: each packed tier's framed bytes from the card
+    against the same packer on the CPU, fed the card's inputs copied to the
+    host (the bf16 decoder output, the x 165 prediction, the stdevs, the
+    segment map, the read indices; the raw step's rows for the delta tiers).
+    Bar: bit-equal bytes. Returns {bits: bytes per row}."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.runtime import predict as tpredict
+
+    cfg = load_config(None)  # bf16, the ULP tier's compute
+    knobs = tpredict.PredictKnobs()
+    params = fft_model.to_device(host_params, dev, torch.bfloat16)
+    batch = [t.to(dev) for t in _batch(B, 3)]
+    cpu = torch.device("cpu")
+    host = lambda ts: tuple(t.to(cpu) for t in ts)  # noqa: E731
+    with torch.inference_mode():
+        dec, _, _, noise_stdev, seg_parts = tpredict.decoder_output(
+            params, *batch[:3], prng.key(SEED, dev), batch[3], config=cfg, knobs=knobs)
+        pred = dec.float() * knobs.scaling_max_value
+        sig, counts = tpredict.predict_step(params, *batch[:3], prng.key(SEED, dev), batch[3],
+                                            config=cfg, knobs=knobs)
+        ridx = batch[1]
+        packs = {
+            2: lambda d, p, n, sp, r, s, c: tpredict._pack_event_wire_ulp(d, sp, n, r, knobs),
+            4: lambda d, p, n, sp, r, s, c: tpredict._pack_event_wire(p, sp, n, r, knobs),
+            8: lambda d, p, n, sp, r, s, c: tpredict._pack_wire(s, c, 8) + (c,),
+            12: lambda d, p, n, sp, r, s, c: tpredict._pack_wire(s, c, 12) + (c,),
+        }
+        widths = {}
+        for bits, pack in packs.items():
+            args = (dec, pred, noise_stdev, seg_parts, ridx, sig, counts)
+            card = tpredict._frame_outputs(pack(*args)).cpu()
+            args_h = tuple(host(a) if isinstance(a, tuple) else a.to(cpu) for a in args)
+            plain = tpredict._frame_outputs(pack(*args_h))
+            check(card.dtype == torch.uint8 and torch.equal(card, plain),
+                  f"{bits}-bit packer: the card's bytes differ from the CPU's on "
+                  f"{(card != plain).any(dim=1).sum().item()} of {B} rows")
+            widths[bits] = card.shape[1]
+    return widths
+
+
+def _tier_runs_match(what, got, want, exact: bool) -> float:
+    """Records `got` against `want`: the same read ids and lengths; equal
+    samples (exact) or every sample within 1 count and >= 90 % equal.
+    Returns the share of equal samples."""
+    check([r for r, _ in got] == [r for r, _ in want], f"{what}: other read ids")
+    check(all(len(a) == len(b) for (_, a), (_, b) in zip(got, want)),
+          f"{what}: sample counts differ from the raw run's")
+    d = np.abs(np.concatenate([a.astype(np.int64) - b for (_, a), (_, b) in zip(got, want)]))
+    share = float((d == 0).mean())
+    if exact:
+        check(d.max() == 0, f"{what}: {int((d != 0).sum())} samples differ from raw")
+    else:
+        check(d.max() <= 1 and share >= 0.9,
+              f"{what}: max|Δ| {d.max()}, equal {share:.4f} against raw")
+    return share
+
+
+def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100):
+    """Phase 14, the wire formats on the card: the packers against the CPU;
+    phase 4's run (auto: the ULP tier) against raw with and without noise;
+    the 8- and 12-bit tiers bit-equal to raw; a run whose noise overflows
+    int8 steps down from 8 and still equals raw; every packed batch decoded
+    by the C++ codec; bytes per row, stage timers per batch and kSamples/s
+    at auto and raw printed beside the card."""
+    import os
+
+    from seq2squiggle_tpu_torch.io.native.build import load_native
+    from seq2squiggle_tpu_torch.runtime.predict import row_bytes
+
+    widths = hold_packers(host_params, dev)
+    check(load_native() is not None, "the C++ codec did not build on this host")
+    log("wire packers on the card: framed bytes equal to the CPU's at 2, 4, 8 and 12 bits; "
+        "bytes per row " + ", ".join(f"{b}: {w}" for b, w in widths.items())
+        + f", raw: {row_bytes(16, 250, 16)}")
+    check(main_stats["wire_bits"] == 2, f"main path ended at {main_stats['wire_bits']} bits")
+
+    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+    try:
+        runs = {}
+        for name, over in (("raw", dict(wire_format="raw")), ("auto", {}),
+                           ("raw noise 0", dict(wire_format="raw", noise_std=0.0)),
+                           ("auto noise 0", dict(noise_std=0.0)),
+                           ("8", dict(wire_format="8")), ("12", dict(wire_format="12"))):
+            stats, _, _, recs = _predict_run(dev, "out.blow5", n_reads, **over)
+            _check_records(f"wire run {name}", stats, recs, n_reads)
+            packed = name.split()[0] != "raw"
+            check(not packed or (stats["wire_decode"]["numpy"] == 0
+                                 and stats["wire_decode"]["native"] > 0),
+                  f"wire run {name}: decoded {stats['wire_decode']}, want the C++ codec only")
+            runs[name] = (stats, recs)
+        # the ladder: ~40 sigma-20 pA noise deltas a row overflow int8's 24 slots
+        ladder = {}
+        for name in ("raw", "8"):
+            ladder[name] = _predict_run(dev, "out.blow5", 30, wire_format=name, noise_std=20.0,
+                                        predict_batch_size=256)
+    finally:
+        del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
+
+    raw_recs = runs["raw"][1]
+    check(main_recs is not None and len(main_recs) == len(runs["auto"][1]), "phase 4 records")
+    share = _tier_runs_match("auto (ULP) against raw", runs["auto"][1], raw_recs, exact=False)
+    _tier_runs_match("phase 4 against this auto run", main_recs, runs["auto"][1], exact=True)
+    _tier_runs_match("auto against raw, noise 0", runs["auto noise 0"][1],
+                     runs["raw noise 0"][1], exact=True)
+    for bits in ("8", "12"):
+        _tier_runs_match(f"{bits}-bit against raw", runs[bits][1], raw_recs, exact=True)
+    stats8 = ladder["8"][0]
+    check(stats8["wire_bits"] in (12, 16), f"ladder run ended at {stats8['wire_bits']} bits")
+    _tier_runs_match("ladder run against raw", ladder["8"][3], ladder["raw"][3], exact=True)
+    for name, (stats, _) in runs.items():
+        log(f"wire run {name}: settled on {stats['wire_bits']} bits, {stats['samples']} samples "
+            f"in {stats['seconds']:.3f} s ({stats['ksamples_per_s']:.1f} kSamples/s), "
+            f"decoded {stats['wire_decode']} [{smi}]")
+    log(f"wire: auto against raw with noise, samples equal {share:.4f}, all within 1 count; "
+        f"noise 0, 8 and 12 bits bit-equal to raw; ladder from 8 bits settled on "
+        f"{stats8['wire_bits']} bits with records equal to raw")
+    for name in ("auto", "raw"):
+        stats = runs[name][0]
+        t = stats["timers"]
+        n = sum(v for k, v in t.items() if k.startswith("n_t"))
+        per = {k: round(v / n * 1e3, 3) for k, v in t.items()
+               if not k.startswith("n_t") and isinstance(v, float)}
+        log(f"stage timers at {name}, ms per batch over {n} batches: {json.dumps(per)} [{smi}]")
+    return {name: stats["ksamples_per_s"] for name, (stats, _) in runs.items()}
 
 
 def phase_pair(params_by_dtype, dev):
@@ -1181,7 +1338,7 @@ def main() -> int:
     worst_bf16, times = phase_kernel(params, dev)
     log(f"digests: {json.dumps(digests(dev))}")
     phase_step(host_params, dev)
-    launches, _, recs = phase_main_path(dev, pair=False)
+    launches, _, recs, main_stats = phase_main_path(dev, pair=False)
     core = phase_core_kernels(dev)[torch.bfloat16]
     phase_train_step(dev, "core", "core")
     _, _, core_fwd_launches, core_bwd_launches = phase_train_main_path(
@@ -1192,12 +1349,13 @@ def main() -> int:
         dev, None, epochs=2, steps=TRAIN_STEPS, resume=True)
     pair = phase_pair(params, dev)
     variants, variant_profile, cut_profile = phase_variants(params, dev)
-    _, pair_launches, pair_recs = phase_main_path(dev, pair=True)
+    _, pair_launches, pair_recs, _ = phase_main_path(dev, pair=True)
     check(len(pair_recs) == len(recs)
           and all(a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(recs, pair_recs)),
           "pallas_pair: true wrote other records than pallas_pair: false")
     log(f"main path at pallas_pair: true: {len(pair_recs)} records equal to phase 4's")
     phase_other_modes(dev)
+    phase_wire(host_params, dev, main_stats, recs, smi)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16

@@ -1,7 +1,8 @@
-"""Profile the PyTorch port's main paths on one GPU: `simulate_run` (raw
-wire) or, with --train, the train step.
+"""Profile the PyTorch port's main paths on one GPU: `simulate_run` (at the
+default --wire-format auto, the ULP tier in bf16) or, with --train, the
+train step.
 
-    python scripts/profile_torch_port.py [--reads 300] [--pair] [--out-dir build/profile]
+    python scripts/profile_torch_port.py [--reads 300] [--pair] [--wire] [--out-dir build/profile]
     python scripts/profile_torch_port.py --train [--out-dir build/profile]
 
 Runs in one process, with the committed R10 weights, the default bf16 config
@@ -26,6 +27,13 @@ counts, the device time of the block kernels and the device-busy share of
 both settings come from one process on one card; that table goes to
 <out-dir>/profile_pair.txt.
 
+With --wire, step 2 runs --reads at --wire-format raw and at auto in turns
+(raw, auto, auto, raw, raw, auto) with the stage timers on
+(SEQ2SQUIGGLE_TPU_TIMERS: decode, export, d2h_wait seconds), and steps 3
+and 4 are repeated at raw, so that both tiers' rates, launches per batch,
+device-busy shares and host functions come from one process on one card;
+those go to <out-dir>/profile_raw.txt and <out-dir>/cprofile_raw.txt.
+
 With --train: the default config at full width (bf16, batch 512, Adam,
 dropout on) on chip_smoke.py's synthetic chunks; 5 warm-up steps, then 10
 steps each at `pallas_train: block` (what the default `auto` picks), `core`
@@ -46,6 +54,7 @@ import argparse
 import cProfile
 import io
 import json
+import os
 import pathlib
 import pstats
 import re
@@ -68,7 +77,8 @@ SEED = 7
 BATCH = 1024
 
 
-def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False) -> dict:
+def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False,
+        wire: str = "auto") -> dict:
     return simulate_run(
         config=dict(load_config(None), pallas_pair=pair), saved_weights=str(R10),
         fasta=str(fasta),
@@ -76,7 +86,7 @@ def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False
         profile="dna-r10-prom", dwell_mean=None, dwell_std=0.0, noise_std=2.0,
         noise_sampling=True, duration_sampling=True, distr="expon",
         predict_batch_size=BATCH, export_every_n_samples=1_000_000, seed=SEED,
-        show_progress=False, device=torch.device("cuda"),
+        show_progress=False, wire_format=wire, device=torch.device("cuda"),
     )
 
 
@@ -90,11 +100,12 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False) -> dict:
+def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False,
+                wire: str = "auto") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats = run(fasta, out, n_reads, pair)
+        stats = run(fasta, out, n_reads, pair, wire)
     torch.cuda.synchronize()
     avg = prof.key_averages()
 
@@ -113,12 +124,14 @@ def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False) 
     busy_s = _union_us((e.time_range.start, e.time_range.end) for e in device) / 1e6
     sort = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
             else "self_cuda_time_total")
-    table = "profile_pair.txt" if pair else "profile.txt"
+    table = "profile_pair.txt" if pair else f"profile{'' if wire == 'auto' else '_' + wire}.txt"
     (out_dir / table).write_text(avg.table(sort_by=sort, row_limit=40))
+    batches = -(-stats["chunks"] // BATCH)
     return {
         "reads": stats["reads"], "chunks": stats["chunks"], "samples": stats["samples"],
-        "wall_s": stats["seconds"],
+        "wall_s": stats["seconds"], "wire_bits": stats["wire_bits"], "batches": batches,
         "cudaLaunchKernel": calls.get("cudaLaunchKernel", 0),
+        "cudaLaunchKernel_per_batch": calls.get("cudaLaunchKernel", 0) / batches,
         "cudaStreamSynchronize": calls.get("cudaStreamSynchronize", 0),
         "host_cpu_self_s": sum(e.self_cpu_time_total for e in avg) / 1e6,
         "device_self_s": sum(dev_total(e) for e in avg) / 1e6,
@@ -131,14 +144,14 @@ def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False) 
     }
 
 
-def cprofile_run(fasta, out, n_reads, out_dir: pathlib.Path) -> dict:
+def cprofile_run(fasta, out, n_reads, out_dir: pathlib.Path, wire: str = "auto") -> dict:
     prof = cProfile.Profile()
     prof.enable()
-    stats = run(fasta, out, n_reads)
+    stats = run(fasta, out, n_reads, wire=wire)
     prof.disable()
     text = io.StringIO()
     pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(40)
-    (out_dir / "cprofile.txt").write_text(text.getvalue())
+    (out_dir / f"cprofile{'' if wire == 'auto' else '_' + wire}.txt").write_text(text.getvalue())
     return {"wall_s": stats["seconds"]}
 
 
@@ -228,6 +241,8 @@ def main() -> int:
     ap.add_argument("--out-dir", default=str(ROOT / "build" / "profile"))
     ap.add_argument("--pair", action="store_true",
                     help="repeat the steady and the profiled run with pallas_pair: true")
+    ap.add_argument("--wire", action="store_true",
+                    help="repeat the steady and the profiled run at --wire-format raw")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the predict path")
     args = ap.parse_args()
@@ -252,12 +267,22 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         fasta.write_text(">synthetic\n" + "".join(rng.choice(list("ACGT"), 200_000)) + "\n")
         out = pathlib.Path(tmp) / "out.blow5"
-        runs = [("warm", 30, False), ("steady", args.reads, False)]
+        runs = [("warm", 30, False, "auto"), ("steady", args.reads, False, "auto")]
         if args.pair:  # in turns, and before a profiler slows the launches
-            runs += [("pair_steady", args.reads, True), ("steady_again", args.reads, False)]
-        for name, n, pair in [*runs, ("steady_1000", 1000, False)]:
+            runs += [("pair_steady", args.reads, True, "auto"),
+                     ("steady_again", args.reads, False, "auto")]
+        if args.wire:
+            os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+            runs = [runs[0], ("raw_steady", args.reads, False, "raw"), *runs[1:],
+                    ("auto_steady_2", args.reads, False, "auto"),
+                    ("raw_steady_2", args.reads, False, "raw"),
+                    ("raw_steady_3", args.reads, False, "raw"),
+                    ("auto_steady_3", args.reads, False, "auto")]
+        for name, n, pair, wire in [*runs, ("steady_1000", 1000, False, "auto")]:
+            if name == "steady_1000":
+                os.environ.pop("SEQ2SQUIGGLE_TPU_TIMERS", None)
             fft_block.launches = fft_block.pair_launches = 0
-            stats = run(fasta, out, n, pair)
+            stats = run(fasta, out, n, pair, wire)
             stats["fft_block_launches"] = fft_block.launches
             stats["fft_block_pair_launches"] = fft_block.pair_launches
             print(name, stats, flush=True)
@@ -269,6 +294,11 @@ def main() -> int:
         if args.pair:
             result["pair_profiled"] = profile_run(fasta, out, args.reads, out_dir, pair=True)
             print("pair profiled", result["pair_profiled"], flush=True)
+        if args.wire:
+            result["raw_profiled"] = profile_run(fasta, out, args.reads, out_dir, wire="raw")
+            print("raw profiled", result["raw_profiled"], flush=True)
+            result["raw_cprofiled"] = cprofile_run(fasta, out, args.reads, out_dir, wire="raw")
+            print("raw cprofiled", result["raw_cprofiled"], flush=True)
     print(json.dumps(result), flush=True)
     return 0
 

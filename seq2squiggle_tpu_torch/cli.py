@@ -57,10 +57,11 @@ def main():
     """seq2squiggle-tpu on PyTorch/CUDA: nanopore signal simulation on a GPU.
 
     The port of the JAX package's `predict` and `train` commands. `predict`
-    writes BLOW5, SLOW5 or POD5. On the port --wire-format auto means raw
-    int16 rows (the packed formats are not ported yet, and a packed value is
-    an error); --num-shards above 1 and --trace-dir are not ported yet and
-    are errors too.
+    writes BLOW5, SLOW5 or POD5; --wire-format auto starts at the ULP tier
+    under bf16 compute and steps down on overflow, as in the JAX package;
+    --num-shards and --trace-dir work. Several devices in one process are
+    not ported: one device per process (shard over processes with
+    --num-shards).
     """
 
 
@@ -126,17 +127,21 @@ def advanced_options(f):
                      hidden=True, help="This process's shard index."),
         click.option("--trace-dir", default=None, type=str, show_default=True,
                      hidden=True,
-                     help="Write a profiler trace of the run here."),
+                     help="Write a torch.profiler trace of the run here."),
         click.option("--wire-format", default="auto",
                      type=click.Choice(["auto", "ulp", "event", "8", "12",
                                         "raw"]),
                      show_default=True, hidden=True,
-                     help="Device->host wire format. On the port auto and "
-                     "raw both ship raw int16 rows; the packed tiers (ulp, "
-                     "event, 8, 12) are not ported yet and are an error, so "
-                     "auto does not start at the ULP tier and steps down "
-                     "nowhere, as it does in the JAX package. The records "
-                     "written are the same either way."),
+                     help="Device->host wire format: auto starts at the "
+                     "ULP tier (bf16 event levels + 2-bit ULP deltas; "
+                     "amplitude noise is regenerated host-side from the "
+                     "same per-chunk keys - deterministic, bit-identical "
+                     "to raw for noise-free runs, within 1 ADC count "
+                     "otherwise) and downgrades ulp -> event -> 8 -> "
+                     "12-bit -> raw int16 on exception overflow; a fixed "
+                     "value pins the starting tier ('8' is the narrowest "
+                     "unconditionally bit-lossless one, 'raw' disables "
+                     "packing)."),
         click.option("--slow5-press", default="zstd",
                      type=click.Choice(["zstd", "zlib", "none"]),
                      show_default=True,
@@ -194,7 +199,8 @@ def predict(ctx, fasta, read_input, num_reads, read_length, coverage, out,
     """Generate sequencing signals from a genome or read FASTA file.
 
     FASTA must be a .fasta/.fastq file with the genome or reads to simulate.
-    The port takes --wire-format auto or raw only; both ship raw int16 rows.
+    --wire-format auto starts at the ULP tier under bf16 compute, as in the
+    JAX package; --num-shards and --trace-dir work.
     """
     if show_advanced_options:
         for param in ctx.command.params:

@@ -1,23 +1,36 @@
 """The `predict` pipeline on one GPU: the port of
-seq2squiggle_tpu/runtime/simulate.py for the raw int16 wire format.
+seq2squiggle_tpu/runtime/simulate.py.
 
 Reads stream from the host modules (io.reads.get_reads, batcher.iter_batches)
 into fixed-size chunk batches; each batch goes to the device through pinned
-host memory, runs `predict_step`, and comes back as (B, T) int16 samples plus
-per-row counts; StreamingExporter assembles reads and the AsyncWriter thread
-encodes and writes BLOW5/SLOW5 records. While batch N's results copy back,
+host memory, runs `predict_step` at the run's wire tier, and comes back as one
+framed uint8 buffer (runtime/predict.wire_layout) in one pinned copy;
+runtime/wire.py decodes it (the event tiers regenerate the amplitude noise on
+the host), StreamingExporter assembles reads and the AsyncWriter thread
+encodes and writes BLOW5/SLOW5 records. While batch N's buffer copies back,
 the host prepares batch N+1 and queues its step, so the device stays busy.
+
+Wire tiers, as the JAX package picks them: `auto` and `ulp` start at the
+2-bit ULP event tier under bf16 compute with T <= 255, `event` (and `auto`
+elsewhere) at the 4-bit event tier where T is even and <= 255, then 8-bit
+deltas; `8`, `12` and `raw` pin their tier. A batch that overflows its
+tier's budget is recomputed raw, and after four such batches the run steps
+down 2 -> 4 -> 8 -> 12 -> 16; the first ULP batch also checks its escape
+budgets. This ladder is about data a format cannot hold, not about a kernel
+that fails: a kernel that fails raises.
 
 Every output format (BLOW5, SLOW5, POD5), profile (R10, R9, RNA) and read
 mode (reads, reference with -n or -c, whole contigs) of the JAX package runs
-through this loop. There is no first-batch kernel ladder: a kernel that fails
-raises. Not ported yet (each raises NotImplementedError): --num-shards > 1,
---trace-dir, and the packed wire formats (--wire-format other than auto or
-raw; on the port auto means raw).
+through this loop, as do --num-shards / --shard-index (round-robin reads, one
+output file a shard), --trace-dir (a torch.profiler trace) and the stage
+timers (SEQ2SQUIGGLE_TPU_TIMERS=1: `timers` in the returned stats). One
+device per process: the JAX package's device-level data parallelism is not
+ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -29,6 +42,7 @@ import torch
 from .. import prng
 from ..device import resolve_device
 from ..config import check_model_config
+from ..io.native.build import load_native
 from ..io.reads import get_reads
 from ..io.writers import BLOW5Writer, POD5Writer
 from ..models.fft_model import compute_dtype, count_params, init_params, to_device
@@ -38,11 +52,20 @@ from ..utils import tune_host_allocator
 from .async_writer import AsyncWriter
 from .batcher import iter_batches
 from .exporter import StreamingExporter
-from .predict import PredictKnobs, predict_step
+from .predict import WIRE_ESC_NIB_PER_ROW, PredictKnobs, predict_step
+from .wire import EventWireDecoder, unframe_wire, unpack_wire
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
-WIRE_FORMATS = ("auto", "raw")
+WIRE_FORMATS = ("auto", "ulp", "event", "8", "12", "raw")
+_START_BITS = {"auto": 2, "ulp": 2, "event": 4, "8": 8, "12": 12, "raw": 16}
+_NEXT_BITS = {2: 4, 4: 8, 8: 12, 12: 16}
+_TIER_NAMES = {4: "the 4-bit event tier", 8: "8-bit deltas", 12: "12-bit deltas",
+               16: "raw int16"}
+# A batch that overflows its tier is recomputed raw; the run steps down a
+# tier only once this many batches have overflowed at it (one stray row in
+# millions must not widen every later batch).
+_DOWNGRADE_AFTER = 4
 
 
 def get_writer(out, profile_dict, ideal_mode, profile_name, preserve_read_ids,
@@ -78,19 +101,44 @@ def resolve_weights(saved_weights: Optional[str], config: dict, seed: int,
     return load_checkpoint(str(saved_weights))
 
 
-def _check_supported(num_shards: int, trace_dir, wire_format: str) -> None:
-    if num_shards > 1:
-        raise NotImplementedError(
-            "--num-shards > 1 is not ported to the GPU yet (ROADMAP.md, module "
-            "queue A10)")
-    if trace_dir:
-        raise NotImplementedError(
-            "--trace-dir is not ported to the GPU yet (ROADMAP.md, module "
-            "queue A13)")
+def start_wire_bits(wire_format: str, config: dict) -> int:
+    """The run's first wire tier (JAX simulate.py:168-193): the ULP tier
+    needs bf16 compute and T <= 255, else the event tier; the event tier
+    needs an even T <= 255, else 8-bit deltas."""
     if str(wire_format) not in WIRE_FORMATS:
-        raise NotImplementedError(
-            f"--wire-format {wire_format}: the packed wire formats are not "
-            "ported to the GPU yet (ROADMAP.md, module queue A8); use auto or raw")
+        raise ValueError(f"--wire-format must be one of {', '.join(WIRE_FORMATS)}")
+    bits = _START_BITS[str(wire_format)]
+    T = int(config["max_signal_len"])
+    if bits == 2 and not (T <= 255 and config.get("compute_dtype") == "bfloat16"):
+        logger.info("ULP wire tier needs bfloat16 compute and < 256 frames; "
+                    "starting at the 4-bit event tier instead.")
+        bits = 4
+    if bits == 4 and not (T % 2 == 0 and T <= 255):
+        logger.info("Event wire tier needs an even frame budget < 256; "
+                    "starting at 8-bit deltas instead.")
+        bits = 8
+    return bits
+
+
+def ulp_budget_short(arrs) -> Optional[str]:
+    """The first ULP batch's escape-budget check (JAX simulate.py:356-405):
+    the name of a batch-flat buffer with less than 8 sigma of Poisson
+    headroom over this batch's use of it, or None."""
+    stream, _, lvl_d, _, _, esc = arrs[:6]
+    B = stream.shape[0]
+    byte_vals = np.arange(256, dtype=np.uint16)
+    esc_lut = sum((((byte_vals >> (2 * j)) & 3) == 3).astype(np.int64) for j in range(4))
+    usage = [
+        (int(esc_lut[stream].sum()), B * WIRE_ESC_NIB_PER_ROW, "escape"),
+        # nibble 8 marks wides; unused escape slots are 0, never 8
+        (int(((esc & 0xF) == 8).sum() + ((esc >> 4) == 8).sum()), max(B // 4, 1),
+         "wide-jump"),
+        (int((lvl_d == np.int8(-127)).sum()), B, "level-escape"),
+    ]
+    for n, cap, name in usage:
+        if n + 8.0 * np.sqrt(n) > cap:
+            return f"{n}/{cap} {name} slots"
+    return None
 
 
 def simulate_run(
@@ -135,8 +183,11 @@ def simulate_run(
 ) -> dict:
     """Run the simulation on `device` (a CUDA device that is not there
     raises); returns a stats dict (reads, chunks, samples, seconds,
-    ksamples_per_s)."""
-    _check_supported(num_shards, trace_dir, wire_format)
+    ksamples_per_s; wire_bits, the tier the run ended at; wire_decode, the
+    packed batches the C++ and the numpy decoders decoded; and with
+    SEQ2SQUIGGLE_TPU_TIMERS set, timers)."""
+    if num_shards > 1 and not (0 <= shard_index < num_shards):
+        raise ValueError("shard_index must be in [0, num_shards)")
     device = resolve_device(device)
     tune_host_allocator()
     profile_dict = update_profile(
@@ -150,6 +201,7 @@ def simulate_run(
         dwell_mean = profile_dict["sample_rate"] / profile_dict["bps"]
     config = update_config_for_profile(profile, config)
     ideal_mode = not (duration_sampling or dwell_std > 0)
+    wire_bits = start_wire_bits(wire_format, config)
 
     writer_rng = np.random.default_rng(seed)
     writer = get_writer(out, profile_dict, ideal_mode, profile, preserve_read_ids,
@@ -172,12 +224,25 @@ def simulate_run(
         digitisation=float(profile_dict["digitisation"]),
         signal_range=float(profile_dict["range"]),
         offset_mean=float(profile_dict["offset_mean"]),
+        wire_bits=wire_bits,
     )
     base_key = prng.key(seed, device)
 
     reads, total_chunks = get_reads(
         fasta, read_input, n, r, c, config, distr, seed, profile, min_read_len
     )
+
+    # Round-robin read sharding over processes: the keys derive from GLOBAL
+    # read indices, so each read's signal is the same however many shards
+    # simulate the set; each shard writes its own file, numbering reads by
+    # global index so that indexed UUIDs never collide when files merge.
+    read_idx_start, read_idx_step = 0, 1
+    if num_shards > 1:
+        all_reads = reads
+        reads = (item for i, item in enumerate(all_reads) if i % num_shards == shard_index)
+        total_chunks //= num_shards
+        read_idx_start, read_idx_step = shard_index, num_shards
+        writer.read_index_start, writer.read_index_step = read_idx_start, read_idx_step
 
     if export_every_n_samples != float("inf"):
         writer = AsyncWriter(writer)
@@ -193,6 +258,8 @@ def simulate_run(
             progress = None
 
     on_gpu = device.type == "cuda"
+    T_row = int(config["max_signal_len"])
+    K_row = int(config["max_dna_len"])
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -204,37 +271,137 @@ def simulate_run(
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=on_gpu)
         return h.copy_(t, non_blocking=True)
 
+    def step(batch, k: PredictKnobs) -> torch.Tensor:
+        return predict_step(
+            params, to_dev(batch.codes), to_dev(batch.read_idx),
+            to_dev(batch.chunk_off), base_key, to_dev(batch.n_kmers),
+            config=config, knobs=k, framed=True)
+
+    # The tier of the NEXT dispatch. Each in-flight buffer carries the bits
+    # of the step that made it, so a step-down never decodes a buffer with
+    # another tier's layout.
+    state = {"knobs": knobs, "ulp_probed": False}
+    overflow_counts = dict.fromkeys(_NEXT_BITS, 0)
+    decoders = {}
+    decoded_by = {"native": 0, "numpy": 0}  # packed batches, by decoder
+
+    # Stage timers (SEQ2SQUIGGLE_TPU_TIMERS=1): where does the wall go?
+    timing = bool(os.environ.get("SEQ2SQUIGGLE_TPU_TIMERS"))
+    timers = {"d2h_wait": 0.0, "decode": 0.0, "export": 0.0, "dispatch": 0.0}
+
+    def downgrade(exc, bits, batch):
+        """Recompute one batch raw; step the run down a tier once overflows
+        at the current one recur."""
+        raw = to_host(step(batch, dataclasses.replace(knobs, wire_bits=16)))
+        if on_gpu:
+            torch.cuda.current_stream(device).synchronize()
+        cur = state["knobs"]
+        if bits == cur.wire_bits:
+            overflow_counts[bits] += 1
+            if overflow_counts[bits] < _DOWNGRADE_AFTER:
+                logger.warning(
+                    f"{exc} — recomputed this batch raw ({overflow_counts[bits]}/"
+                    f"{_DOWNGRADE_AFTER} overflows before the {bits}-bit tier downgrades).")
+            else:
+                nxt = _NEXT_BITS[bits]
+                logger.warning(f"{exc} — downgrading wire format to {_TIER_NAMES[nxt]}.")
+                state["knobs"] = dataclasses.replace(cur, wire_bits=nxt)
+        return unframe_wire(raw.numpy(), 16, T_row, K_row)
+
+    def decode(buf: np.ndarray, batch, bits: int):
+        """(flat samples, counts) for the event tiers, else ((B, T) signal,
+        counts)."""
+        arrs = unframe_wire(buf, bits, T_row, K_row)
+        if bits == 2 and not state["ulp_probed"]:
+            state["ulp_probed"] = True
+            short = ulp_budget_short(arrs)
+            if short and state["knobs"].wire_bits == 2:
+                logger.info(f"ULP-tier probe: batch 0 used {short} (< 8 sigma "
+                            "headroom); switching to the 4-bit event tier proactively.")
+                state["knobs"] = dataclasses.replace(state["knobs"], wire_bits=4)
+        try:
+            if bits in (2, 4):
+                if bits not in decoders:
+                    decoders[bits] = EventWireDecoder(
+                        dataclasses.replace(knobs, wire_bits=bits), base_key, frames=T_row)
+                out = decoders[bits](arrs, batch.read_idx, batch.chunk_off)
+                decoded_by["native" if decoders[bits].native_used else "numpy"] += 1
+                return out, True
+            if bits in (8, 12):
+                lo, exc_pos, exc_val, n_exc, counts = arrs
+                out = unpack_wire(lo, exc_pos, exc_val, n_exc, bits=bits)
+                decoded_by["native" if load_native() is not None else "numpy"] += 1
+                return (out, counts), False
+        except RuntimeError as exc:
+            return downgrade(exc, bits, batch), False
+        return arrs, False
+
     def drain(entry):
-        done, signal_h, counts_h, segments = entry
+        done, buf_h, batch, bits = entry
+        t = time.perf_counter()
         if done is not None:
             done.synchronize()
-        exporter.add_batch(signal_h.numpy(), counts_h.numpy(), segments)
+        t_dec = time.perf_counter()
+        t_cpu = time.thread_time()
+        (out, counts), flat = decode(buf_h.numpy(), batch, bits)
+        t_exp = time.perf_counter()
+        if timing:
+            timers["d2h_wait"] += t_dec - t
+            timers["decode"] += t_exp - t_dec
+            timers["decode_cpu"] = timers.get("decode_cpu", 0.0) + time.thread_time() - t_cpu
+            timers[f"decode_t{bits}"] = timers.get(f"decode_t{bits}", 0.0) + t_exp - t_dec
+            timers[f"n_t{bits}"] = timers.get(f"n_t{bits}", 0) + 1
+            t_cpu = time.thread_time()
+        if flat:
+            exporter.add_flat(out, counts, batch.segments)
+        else:
+            exporter.add_batch(out, counts, batch.segments)
+        if timing:
+            timers["export"] += time.perf_counter() - t_exp
+            timers["export_cpu"] = (timers.get("export_cpu", 0.0)
+                                    + time.thread_time() - t_cpu)
         if progress is not None:
-            progress.update(sum(s.n_rows for s in segments))
+            progress.update(sum(s.n_rows for s in batch.segments))
+
+    prof = None
+    if trace_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(trace_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu else [])
+        prof = profile(activities=activities)
+        prof.start()
 
     t0 = time.perf_counter()
+    t0_proc = time.process_time()
     pending = None
     with torch.inference_mode():
         for batch in iter_batches(reads, predict_batch_size, config["seq_kmer"],
-                                  config["max_dna_len"]):
-            signal, counts = predict_step(
-                params, to_dev(batch.codes), to_dev(batch.read_idx),
-                to_dev(batch.chunk_off), base_key, to_dev(batch.n_kmers),
-                config=config, knobs=knobs,
-            )
-            signal_h, counts_h = to_host(signal), to_host(counts)
+                                  config["max_dna_len"], read_idx_start=read_idx_start,
+                                  read_idx_step=read_idx_step):
+            k = state["knobs"]
+            buf_h = to_host(step(batch, k))
             done = None
             if on_gpu:
                 done = torch.cuda.Event()
                 done.record()
-            # export the previous batch while this one computes and copies
+            # decode and export the previous batch while this one computes
+            # and copies
             if pending is not None:
                 drain(pending)
-            pending = (done, signal_h, counts_h, batch.segments)
+            pending = (done, buf_h, batch, k.wire_bits)
         if pending is not None:
             drain(pending)
+    if timing:
+        timers["dispatch"] = time.perf_counter() - t0
+    t_fin = time.perf_counter()
     exporter.finalize()
     elapsed = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+        trace = os.path.join(trace_dir, "predict.pt.trace.json")
+        prof.export_chrome_trace(trace)
+        logger.info(f"Profiler trace written to {trace}")
     if progress is not None:
         progress.close()
 
@@ -244,7 +411,23 @@ def simulate_run(
         "samples": exporter.total_samples,
         "seconds": elapsed,
         "ksamples_per_s": exporter.total_samples / elapsed / 1e3 if elapsed else 0.0,
+        "wire_bits": state["knobs"].wire_bits,
+        "wire_decode": decoded_by,
     }
+    if timing:
+        timers["finalize"] = time.perf_counter() - t_fin
+        timers["process_cpu"] = time.process_time() - t0_proc
+        for bits, dec in decoders.items():
+            for k, v in dec.timers.items():
+                timers[f"event{bits}_{k}"] = v
+        for k, v in getattr(writer, "timers", {}).items():
+            timers[f"writer_{k}"] = v
+        inner = getattr(getattr(writer, "_writer", writer), "_file", None)
+        for k, v in getattr(inner, "timers", {}).items():
+            timers[f"slow5_{k}"] = v
+        logger.warning("stage timers: " + ", ".join(
+            f"{k}={v}" if isinstance(v, int) else f"{k}={v:.2f}s" for k, v in timers.items()))
+        stats["timers"] = dict(timers)
     logger.info(
         f"Simulated {stats['reads']} reads / {stats['samples']:,} samples in "
         f"{elapsed:.2f}s ({stats['ksamples_per_s']:.1f} kSamples/s)"

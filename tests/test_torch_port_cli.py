@@ -1,6 +1,7 @@
 """The help texts of the port's command line say what the port does today:
-POD5 output is ported; the packed wire formats, --num-shards above 1 and
---trace-dir are not, and `--wire-format auto` means raw int16 rows."""
+POD5 output, the packed wire formats (`--wire-format auto` starts at the ULP
+tier, as in the JAX package), --num-shards and --trace-dir are ported;
+several devices in one process are not."""
 
 from __future__ import annotations
 
@@ -30,18 +31,24 @@ def test_main_help_lists_what_is_and_is_not_ported():
     text = _help()
     assert "predict" in text and "train" in text
     assert _has(text, "writes BLOW5, SLOW5 or POD5")
-    assert not _has(text, "POD5 output, --num-shards")  # the stale sentence
-    assert _has(text, "--wire-format auto means raw int16 rows")
-    assert _has(text, "--num-shards above 1 and --trace-dir are not ported yet")
+    assert not _has(text, "POD5 output, --num-shards")  # the stale sentences
+    assert not _has(text, "auto means raw int16 rows")
+    assert not _has(text, "are not ported yet")
+    assert _has(text, "--wire-format auto starts at the ULP tier")
+    assert _has(text, "--num-shards and --trace-dir work")
+    assert _has(text, "Several devices in one process are not ported")
 
 
 def test_predict_help_and_the_hidden_wire_format_option():
     text = _help("predict")
-    assert _has(text, "--wire-format auto or raw only; both ship raw int16 rows")
+    assert _has(text, "--wire-format auto starts at the ULP tier under bf16 compute")
+    assert not _has(text, "auto or raw only")  # the stale sentence
     assert "--wire-format" not in text.split("Options:")[1]  # hidden until asked for
     shown = CliRunner().invoke(cli.main, ["predict", "--show-advanced-options"])
     assert shown.exit_code == 0, shown.output
     text = shown.output
-    assert _has(text, "On the port auto and raw both ship raw int16 rows")
-    assert _has(text, "not ported yet and are an error")
-    assert not _has(text, "auto starts at the ULP tier")  # the JAX package's behaviour
+    # the JAX package's help text (seq2squiggle_tpu/cli.py:134-143), now true here
+    assert _has(text, "auto starts at the ULP tier")
+    assert _has(text, "downgrades ulp -> event -> 8 -> 12-bit -> raw int16 on exception overflow")
+    assert not _has(text, "not ported yet and are an error")
+    assert _has(text, "Write a torch.profiler trace of the run here.")

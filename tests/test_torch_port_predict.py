@@ -144,9 +144,26 @@ def test_stable_front_compact():
 
 
 def test_packed_wire_formats_are_not_ported(weights):
+    """The packed formats are ported now (the name is kept from when they
+    raised): an 8-bit predict_step unpacks to the raw step's rows, and its
+    framed buffer splits into the same arrays."""
+    from seq2squiggle_tpu_torch.runtime.wire import unframe_wire, unpack_wire
+
     _, tp = weights
-    batch = _batch(B=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpredict.predict_step(tp, *(torch.from_numpy(a) for a in batch[:3]), prng.key(0),
-                              config=load_config(None),
-                              knobs=tpredict.PredictKnobs(wire_bits=8))
+    batch = [torch.from_numpy(a) for a in _batch(B=8)]
+    params = to_device(tp, torch.device("cpu"), torch.float32)
+    cfg = dict(load_config(None), compute_dtype="float32")
+
+    def step(bits, framed=False):
+        return tpredict.predict_step(params, *batch[:3], prng.key(0), batch[3], config=cfg,
+                                     knobs=tpredict.PredictKnobs(wire_bits=bits),
+                                     framed=framed)
+
+    sig, counts = (t.numpy() for t in step(16))
+    outs = [t.numpy() for t in step(8)]
+    np.testing.assert_array_equal(outs[4], counts)
+    got = unpack_wire(*outs[:4], bits=8)
+    live = np.arange(sig.shape[1])[None] < counts[:, None]
+    np.testing.assert_array_equal(got[live], sig[live])
+    for a, b in zip(unframe_wire(step(8, framed=True).numpy(), 8, 250, 16), outs):
+        np.testing.assert_array_equal(a, b)

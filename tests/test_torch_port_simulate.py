@@ -115,18 +115,53 @@ def test_resolve_device_turns_tf32_off():
     (dict(wire_format="ulp"), "wire-format"),
 ])
 def test_unported_options_raise(tmp_path, override, pattern):
-    fasta = _write_fasta(tmp_path / "r.fasta", 1, seed=6)
-    kw = _run_kwargs(fasta, tmp_path / "o.blow5", True)
-    kw.update(override)
-    with pytest.raises(NotImplementedError, match=pattern):
-        simulate_run(**kw, device=torch.device("cpu"))
+    """The four options that raised NotImplementedError until the packed wire
+    formats, --num-shards and --trace-dir were ported (the name is kept):
+    each now runs, against the raw unsharded run with the same arguments.
+    Two shards' records, merged by read id, are that run's; --trace-dir
+    writes a trace and the same records; 8-bit deltas the same records; the
+    ULP tier (bf16 for both runs) the same reads and sample counts, every
+    sample within 1 count and >= 90 % equal (its stdev field is in quarter
+    counts)."""
+    fasta = _write_fasta(tmp_path / "r.fasta", 3, seed=6)
+    kw = _run_kwargs(fasta, tmp_path / "raw.blow5", True)
+    if override.get("wire_format") == "ulp":
+        kw["config"] = dict(kw["config"], compute_dtype="bfloat16")
+    simulate_run(**kw, device=torch.device("cpu"))
+    _, want = read_slow5(str(tmp_path / "raw.blow5"))
+    if pattern == "num-shards":
+        got = []
+        for i in range(2):
+            kw.update(out=str(tmp_path / f"s{i}.blow5"), num_shards=2, shard_index=i)
+            simulate_run(**kw, device=torch.device("cpu"))
+            got += read_slow5(str(tmp_path / f"s{i}.blow5"))[1]
+        got.sort(key=lambda r: [w["read_id"] for w in want].index(r["read_id"]))
+    else:
+        if pattern == "trace-dir":
+            override = dict(trace_dir=str(tmp_path / "trace"))
+        kw.update(out=str(tmp_path / "o.blow5"), **override)
+        stats = simulate_run(**kw, device=torch.device("cpu"))
+        got = read_slow5(str(tmp_path / "o.blow5"))[1]
+        assert stats["wire_bits"] == {"8": 8, "ulp": 2}.get(override.get("wire_format"), 16)
+    if pattern == "trace-dir":
+        assert any((tmp_path / "trace").glob("*.json"))
+    assert [r["read_id"] for r in got] == [r["read_id"] for r in want] and len(got) == 3
+    d = np.concatenate([np.abs(g["signal"].astype(np.int64) - w["signal"])
+                        for g, w in zip(got, want)])
+    assert all(len(g["signal"]) == len(w["signal"]) for g, w in zip(got, want))
+    if override.get("wire_format") == "ulp":
+        assert d.max() <= 1 and (d == 0).mean() >= 0.9
+    else:
+        assert d.max() == 0
 
 
 def test_port_never_imports_jax():
     """Import the port, run a tiny CPU predict_step (then one through the
-    fused blocks with `pallas_pair: true`) and one CPU train step in a fresh
-    process (this test process has jax loaded by tests/conftest.py): neither
-    jax nor any module of the JAX package may be loaded after that."""
+    fused blocks with `pallas_pair: true`), one CPU train step and a CPU
+    `simulate_run` at --wire-format auto (bf16: the ULP tier, through
+    runtime/wire.py and the C++ decoder) in a fresh process (this test
+    process has jax loaded by tests/conftest.py): neither jax nor any module
+    of the JAX package may be loaded after that."""
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import seq2squiggle_tpu_torch",
@@ -163,6 +198,19 @@ def test_port_never_imports_jax():
         "         'chunks_lengths': torch.randint(0, 5, (2, 16), dtype=torch.int32)}",
         "m = make_train_step(cfg, opt)(tp, state, batch, torch.ones(2), prng.key(2))",
         "assert np.isfinite(float(m['total_loss'])) and state['count'] == 1",
+        "import tempfile, pathlib",
+        "from seq2squiggle_tpu_torch.runtime.simulate import simulate_run",
+        "tmp = pathlib.Path(tempfile.mkdtemp())",
+        "seq = ''.join(np.random.default_rng(0).choice(list('ACGT'), 600))",
+        "(tmp / 'r.fasta').write_text('>r0\\n' + seq + '\\n')",
+        "st = simulate_run(config=load_config(None), saved_weights='assets/bench-weights-R10.npz',",
+        "    fasta=str(tmp / 'r.fasta'), read_input=True, n=-1, r=400, c=-1,",
+        "    out=str(tmp / 'o.blow5'), profile='dna-r10-prom', dwell_mean=None,",
+        "    dwell_std=0.0, noise_std=2.0, noise_sampling=True, duration_sampling=True,",
+        "    distr='expon', predict_batch_size=32, export_every_n_samples=1_000_000,",
+        "    show_progress=False, device=torch.device('cpu'))",
+        "assert st['wire_bits'] == 2 and st['wire_decode'] == {'native': 2, 'numpy': 0}, st",
+        "assert len(read_slow5(str(tmp / 'o.blow5'))[1]) == 1",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',",
         "             'seq2squiggle_tpu'))",
         "assert not bad, bad",
