@@ -590,31 +590,32 @@ def hold_packers(host_params, dev, B: int = BATCH) -> dict:
     knobs = tpredict.PredictKnobs()
     params = fft_model.to_device(host_params, dev, torch.bfloat16)
     batch = [t.to(dev) for t in _batch(B, 3)]
-    cpu = torch.device("cpu")
-    host = lambda ts: tuple(t.to(cpu) for t in ts)  # noqa: E731
     with torch.inference_mode():
         dec, _, _, noise_stdev, seg_parts = tpredict.decoder_output(
             params, *batch[:3], prng.key(SEED, dev), batch[3], config=cfg, knobs=knobs)
-        pred = dec.float() * knobs.scaling_max_value
         sig, counts = tpredict.predict_step(params, *batch[:3], prng.key(SEED, dev), batch[3],
                                             config=cfg, knobs=knobs)
-        ridx = batch[1]
-        packs = {
-            2: lambda d, p, n, sp, r, s, c: tpredict._pack_event_wire_ulp(d, sp, n, r, knobs),
-            4: lambda d, p, n, sp, r, s, c: tpredict._pack_event_wire(p, sp, n, r, knobs),
-            8: lambda d, p, n, sp, r, s, c: tpredict._pack_wire(s, c, 8) + (c,),
-            12: lambda d, p, n, sp, r, s, c: tpredict._pack_wire(s, c, 12) + (c,),
-        }
+        card = dict(dec=dec, pred=dec.float() * knobs.scaling_max_value, std=noise_stdev,
+                    seg=seg_parts, ridx=batch[1], sig=sig, counts=counts)
+        cpu = {k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
+               for k, v in card.items()}
+
+        def framed(bits, x):
+            if bits == 2:
+                outs = tpredict._pack_event_wire_ulp(x["dec"], x["seg"], x["std"], x["ridx"], knobs)
+            elif bits == 4:
+                outs = tpredict._pack_event_wire(x["pred"], x["seg"], x["std"], x["ridx"], knobs)
+            else:
+                outs = tpredict._pack_wire(x["sig"], x["counts"], bits) + (x["counts"],)
+            return tpredict._frame_outputs(outs).cpu()
+
         widths = {}
-        for bits, pack in packs.items():
-            args = (dec, pred, noise_stdev, seg_parts, ridx, sig, counts)
-            card = tpredict._frame_outputs(pack(*args)).cpu()
-            args_h = tuple(host(a) if isinstance(a, tuple) else a.to(cpu) for a in args)
-            plain = tpredict._frame_outputs(pack(*args_h))
-            check(card.dtype == torch.uint8 and torch.equal(card, plain),
+        for bits in (2, 4, 8, 12):
+            got, want = framed(bits, card), framed(bits, cpu)
+            check(got.dtype == torch.uint8 and torch.equal(got, want),
                   f"{bits}-bit packer: the card's bytes differ from the CPU's on "
-                  f"{(card != plain).any(dim=1).sum().item()} of {B} rows")
-            widths[bits] = card.shape[1]
+                  f"{(got != want).any(dim=1).sum().item()} of {B} rows")
+            widths[bits] = got.shape[1]
     return widths
 
 
@@ -651,7 +652,7 @@ def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100)
     check(load_native() is not None, "the C++ codec did not build on this host")
     log("wire packers on the card: framed bytes equal to the CPU's at 2, 4, 8 and 12 bits; "
         "bytes per row " + ", ".join(f"{b}: {w}" for b, w in widths.items())
-        + f", raw: {row_bytes(16, 250, 16)}")
+        + f", raw: {row_bytes(16, 250, 16)} [{smi}]")
     check(main_stats["wire_bits"] == 2, f"main path ended at {main_stats['wire_bits']} bits")
 
     os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"

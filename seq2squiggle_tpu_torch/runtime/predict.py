@@ -22,7 +22,7 @@ batch comes back in one copy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -181,12 +181,21 @@ def predict_step(
 
     if bits == 2:
         outs = _pack_event_wire_ulp(dec, seg_parts, noise_stdev, read_idx, knobs)
-        return _frame_outputs(outs) if framed else outs
-    pred = dec.float() * knobs.scaling_max_value
-    if bits == 4:
-        outs = _pack_event_wire(pred, seg_parts, noise_stdev, read_idx, knobs)
-        return _frame_outputs(outs) if framed else outs
+    elif bits == 4:
+        outs = _pack_event_wire(dec.float() * knobs.scaling_max_value, seg_parts,
+                                noise_stdev, read_idx, knobs)
+    else:
+        signal_compact, counts = _raw_rows(dec, noise_ext, chunk_keys, read_idx, knobs)
+        outs = (signal_compact, counts)
+        if bits != 16:
+            outs = _pack_wire(signal_compact, counts, bits) + (counts,)
+    return _frame_outputs(outs) if framed else outs
 
+
+def _raw_rows(dec, noise_ext, chunk_keys, read_idx, knobs: PredictKnobs):
+    """The raw tier: amplitude noise on the non-zero frames, clamp, int16
+    digitisation; returns (signal_compact (B, T) int16, counts (B,) int32)."""
+    pred = dec.float() * knobs.scaling_max_value
     if knobs.noise_std > 0:
         non_zero = pred != 0.0
         gauss = sample_normal(prng.fold_in(chunk_keys, 2), (pred.shape[1],))
@@ -205,11 +214,7 @@ def predict_step(
 
     keep = (pred != 0.0) & (read_idx[:, None] >= 0)
     counts = keep.sum(dim=1, dtype=torch.int32)
-    signal_compact = _stable_front_compact(signal_raw, keep)
-    outs = (signal_compact, counts)
-    if bits != 16:
-        outs = _pack_wire(signal_compact, counts, bits) + (counts,)
-    return _frame_outputs(outs) if framed else outs
+    return _stable_front_compact(signal_raw, keep), counts
 
 
 def _i16_bits(x: torch.Tensor) -> torch.Tensor:

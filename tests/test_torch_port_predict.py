@@ -1,6 +1,7 @@
-"""The port's device step (runtime/predict.py::predict_step, raw int16 wire)
-against seq2squiggle_tpu.runtime.predict on the JAX CPU backend, with the
-committed R10 weights.
+"""The port's device step (runtime/predict.py::predict_step, raw int16 wire;
+the packed tiers are held in test_torch_port_wire.py) against
+seq2squiggle_tpu.runtime.predict on the JAX CPU backend, with the committed
+R10 weights.
 
 Bars:
   - float32, samplers on: durations equal on >= 99.9 % of chunks; on those

@@ -19,7 +19,6 @@ Bars:
 """
 
 import functools
-import os
 import pathlib
 
 import jax
@@ -445,6 +444,44 @@ def test_step_down_ladder_matches_raw(tmp_path, caplog):
         np.testing.assert_array_equal(a, b)
 
 
+def test_ulp_budget_probe():
+    """The first ULP batch's check of its batch-flat budgets (JAX
+    simulate.py:356-405): 8 sigma of Poisson headroom or a step down."""
+    B, W = 64, (T + 3) // 4
+    arrs = [np.zeros((B, W), np.uint8), None, np.zeros((B, K), np.int8), None, None,
+            np.zeros((B, tpredict.WIRE_ESC_NIB_PER_ROW // 2), np.uint8)]
+    assert tsimulate.ulp_budget_short(arrs) is None
+    arrs[0][:, :4] = 0xFF  # 16 escapes a row: 1024 + 8 sigma = 1280 slots, enough
+    assert tsimulate.ulp_budget_short(arrs) is None
+    arrs[0][:, 4] = 0x03  # one more a row: short
+    assert tsimulate.ulp_budget_short(arrs) == "1088/1280 escape slots"
+    arrs[0][:] = 0
+    arrs[5][:4, 0] = 0x88  # 8 wide jumps for 16 slots
+    assert tsimulate.ulp_budget_short(arrs) == "8/16 wide-jump slots"
+    arrs[5][:] = 0
+    arrs[2][:40, 3] = -127  # 40 escaped levels for 64 slots
+    assert tsimulate.ulp_budget_short(arrs) == "40/64 level-escape slots"
+
+
+def test_ulp_probe_steps_small_batches_down(tmp_path, caplog):
+    """At batch 8 the ULP tier's flat budgets (2 wide-jump slots) have no
+    headroom: the first batch steps the run down to the event tier, and
+    the records stay within 1 count of the raw run's, counts exact."""
+    fasta = _write_fasta(tmp_path / "in.fasta", 3, seed=8)
+    kw = dict(config=load_config(None), predict_batch_size=8, noise_std=0.0)
+    tsimulate.simulate_run(**_run_kwargs(fasta, tmp_path / "raw.blow5", wire_format="raw", **kw),
+                           device=CPU)
+    with caplog.at_level("INFO", logger="seq2squiggle_tpu_torch"):
+        stats = tsimulate.simulate_run(**_run_kwargs(fasta, tmp_path / "a.blow5", **kw),
+                                       device=CPU)
+    assert "switching to the 4-bit event tier proactively" in caplog.text
+    assert stats["wire_bits"] == 4 and stats["wire_decode"]["numpy"] == 0
+    got, raw = _records(tmp_path / "a.blow5"), _records(tmp_path / "raw.blow5")
+    assert [len(s) for _, s in got] == [len(s) for _, s in raw] and len(got) == 3
+    d = np.abs(np.concatenate([a - b for (_, a), (_, b) in zip(got, raw)]))
+    assert d.max() <= 1
+
+
 @pytest.mark.gpu
 def test_packers_on_the_card_match_the_cpu(host_params):
     """chip_smoke.py phase 14's packer check: each tier's framed bytes from
@@ -454,4 +491,5 @@ def test_packers_on_the_card_match_the_cpu(host_params):
         pytest.skip("needs a CUDA device")
     import chip_smoke
 
-    assert chip_smoke.hold_packers(host_params, torch.device("cuda"), B=256)
+    widths = chip_smoke.hold_packers(host_params, torch.device("cuda"), B=256)
+    assert widths == {bits: tpredict.row_bytes(bits, T, K) for bits in (2, 4, 8, 12)}
