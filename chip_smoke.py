@@ -122,7 +122,8 @@ Phases (any failure raises and the script exits non-zero):
      count, >= 90 % equal; phase 4's records equal to this auto run's) and
      with --noise-std 0 (bit-equal); 8 and 12 bits bit-equal to raw; a run
      whose noise (--noise-std 20) overflows int8 deltas, started at 8 bits,
-     steps down to 12 or 16 and equals its raw run; every packed batch
+     steps down to 12 or 16 (its log: for each tier it leaves, three batches
+     recomputed raw, then the step-down) and equals its raw run; every packed batch
      decoded by the C++ codec; the tier each run settled on, bytes per row,
      the stage timers per batch at auto and raw and each run's kSamples/s
      printed beside the card's name and power limit.
@@ -139,6 +140,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import pathlib
 import re
@@ -640,9 +642,9 @@ def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100)
     """Phase 14, the wire formats on the card: the packers against the CPU;
     phase 4's run (auto: the ULP tier) against raw with and without noise;
     the 8- and 12-bit tiers bit-equal to raw; a run whose noise overflows
-    int8 steps down from 8 and still equals raw; every packed batch decoded
-    by the C++ codec; bytes per row, stage timers per batch and kSamples/s
-    at auto and raw printed beside the card."""
+    int8 logs its recomputes and steps down from 8, and still equals raw;
+    every packed batch decoded by the C++ codec; bytes per row, stage timers
+    per batch and kSamples/s at auto and raw printed beside the card."""
     import os
 
     from seq2squiggle_tpu_torch.io.native.build import load_native
@@ -669,11 +671,20 @@ def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100)
                                  and stats["wire_decode"]["native"] > 0),
                   f"wire run {name}: decoded {stats['wire_decode']}, want the C++ codec only")
             runs[name] = (stats, recs)
-        # the ladder: ~40 sigma-20 pA noise deltas a row overflow int8's 24 slots
+        # the ladder: ~40 sigma-20 pA noise deltas a row overflow int8's 24 slots;
+        # the port's log says what its overflow path did
         ladder = {}
+        warnings = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = lambda record: warnings.append(record.getMessage())
+        port_log = logging.getLogger("seq2squiggle_tpu_torch")
         for name in ("raw", "8"):
-            ladder[name] = _predict_run(dev, "out.blow5", 30, wire_format=name, noise_std=20.0,
-                                        predict_batch_size=256)
+            port_log.addHandler(handler)
+            try:
+                ladder[name] = _predict_run(dev, "out.blow5", 30, wire_format=name,
+                                            noise_std=20.0, predict_batch_size=256)
+            finally:
+                port_log.removeHandler(handler)
     finally:
         del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
 
@@ -687,14 +698,22 @@ def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100)
         _tier_runs_match(f"{bits}-bit against raw", runs[bits][1], raw_recs, exact=True)
     stats8 = ladder["8"][0]
     check(stats8["wire_bits"] in (12, 16), f"ladder run ended at {stats8['wire_bits']} bits")
+    # each tier it left: three batches recomputed raw, the fourth steps down
+    steps = [w for w in warnings if "downgrading wire format to" in w]
+    recomputes = sum("recomputed this batch raw" in w for w in warnings)
+    check(steps and "downgrading wire format to 12-bit deltas" in steps[0]
+          and len(steps) == (1 if stats8["wire_bits"] == 12 else 2)
+          and recomputes == 3 * len(steps),
+          f"ladder run logged {len(steps)} step-downs and {recomputes} raw recomputes: {steps}")
     _tier_runs_match("ladder run against raw", ladder["8"][3], ladder["raw"][3], exact=True)
     for name, (stats, _) in runs.items():
         log(f"wire run {name}: settled on {stats['wire_bits']} bits, {stats['samples']} samples "
             f"in {stats['seconds']:.3f} s ({stats['ksamples_per_s']:.1f} kSamples/s), "
             f"decoded {stats['wire_decode']} [{smi}]")
     log(f"wire: auto against raw with noise, samples equal {share:.4f}, all within 1 count; "
-        f"noise 0, 8 and 12 bits bit-equal to raw; ladder from 8 bits settled on "
-        f"{stats8['wire_bits']} bits with records equal to raw")
+        f"noise 0, 8 and 12 bits bit-equal to raw; ladder from 8 bits logged {recomputes} raw "
+        f"recomputes and {len(steps)} step-downs, settled on {stats8['wire_bits']} bits with "
+        f"records equal to raw")
     for name in ("auto", "raw"):
         stats = runs[name][0]
         t = stats["timers"]

@@ -42,7 +42,6 @@ import torch
 from .. import prng
 from ..device import resolve_device
 from ..config import check_model_config
-from ..io.native.build import load_native
 from ..io.reads import get_reads
 from ..io.writers import BLOW5Writer, POD5Writer
 from ..models.fft_model import compute_dtype, count_params, init_params, to_device
@@ -53,7 +52,7 @@ from .async_writer import AsyncWriter
 from .batcher import iter_batches
 from .exporter import StreamingExporter
 from .predict import WIRE_ESC_NIB_PER_ROW, PredictKnobs, predict_step
-from .wire import EventWireDecoder, unframe_wire, unpack_wire
+from .wire import EventWireDecoder, delta_native, unframe_wire, unpack_wire
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
@@ -330,7 +329,7 @@ def simulate_run(
             if bits in (8, 12):
                 lo, exc_pos, exc_val, n_exc, counts = arrs
                 out = unpack_wire(lo, exc_pos, exc_val, n_exc, bits=bits)
-                decoded_by["native" if load_native() is not None else "numpy"] += 1
+                decoded_by["native" if delta_native(lo, bits) is not None else "numpy"] += 1
                 return (out, counts), False
         except RuntimeError as exc:
             return downgrade(exc, bits, batch), False

@@ -73,6 +73,13 @@ def _native_lib():
     return load_native()
 
 
+def delta_native(stream: np.ndarray, bits: int, use_native: bool = True):
+    """The C++ codec when unpack_wire decodes this delta stream with it, else
+    None (no codec, or rows past its 256 frames: then numpy runs)."""
+    T = stream.shape[1] if bits == 8 else (stream.shape[1] // 3) * 2
+    return _native_lib() if use_native and bits in (8, 12) and T <= 256 else None
+
+
 def saturate_i16(x: np.ndarray) -> np.ndarray:
     """Rounded f32 digitised samples -> int16 with a DEFINED boundary:
     NaN -> 0, +/-inf and out-of-range values clamp to the int16 edges.
@@ -99,8 +106,8 @@ def unpack_wire(stream: np.ndarray, exc_pos: np.ndarray, exc_val: np.ndarray,
     the wire tier and recomputes that batch.
 
     Decodes through the single-pass C++ kernel (io/native/slow5_codec.cc,
-    delta_wire_unpack) when the toolchain built it; the numpy path below is
-    the portable fallback and the parity oracle (tests/test_wire.py).
+    delta_wire_unpack) when delta_native says so; the numpy path below is
+    the portable fallback and the parity oracle.
     """
     slots = WIRE_EXC_SLOTS[bits]
     max_exc = int(np.max(n_exc))
@@ -111,8 +118,8 @@ def unpack_wire(stream: np.ndarray, exc_pos: np.ndarray, exc_val: np.ndarray,
         )
     B = stream.shape[0]
     T = stream.shape[1] if bits == 8 else (stream.shape[1] // 3) * 2
-    lib = _native_lib() if use_native else None
-    if lib is not None and T <= 256 and bits in (8, 12):
+    lib = delta_native(stream, bits, use_native)
+    if lib is not None:
         import ctypes
 
         out = np.empty((B, T), np.int16)
@@ -174,16 +181,13 @@ class EventWireDecoder:
     """
 
     def __init__(self, knobs: PredictKnobs, base_key, use_native: bool = True,
-                 native_noise: bool = True, frames: int = None,
-                 dp_shards: int = 1):
+                 frames: int = None):
         self._knobs = knobs
         # prng.key(seed): two uint32 words in an int64 tensor, the words
         # jax.random.key_data gives
         self._base_key = base_key.detach().to("cpu")
         self._use_native = use_native
-        self._native_noise = native_noise
         self._frames = frames  # required for the ULP tier (stream pads to 4)
-        self._dp_shards = dp_shards  # ULP flat buffers are per-shard
         kd = [int(w) & 0xFFFFFFFF for w in self._base_key.tolist()]
         self._key_words = (kd[0], kd[1])
         self._T = None  # set on first call (static shape)
@@ -226,11 +230,11 @@ class EventWireDecoder:
         native = lib is not None and T <= 256
 
         # The native path draws its own noise in C++ (same key chain); the
-        # others draw it here with the port's threefry.
-        gauss_fut = None
-        if knobs.noise_std > 0 and not (native and self._native_noise):
+        # numpy path draws it here with the port's threefry.
+        gauss = None
+        if knobs.noise_std > 0 and not native:
             _t = time.perf_counter()
-            gauss_fut = self._noise(read_idx, chunk_off)
+            gauss = self._noise(read_idx, chunk_off)
             self.timers["noise_dispatch"] += time.perf_counter() - _t
         self.native_used = native
 
@@ -254,9 +258,8 @@ class EventWireDecoder:
             f32p = ctypes.POINTER(ctypes.c_float)
             ridx = np.ascontiguousarray(read_idx, np.int32)
             _t = time.perf_counter()
-            if not noise_mode:
-                gauss = None
-            elif self._native_noise:
+            gauss = None
+            if noise_mode:
                 coff = np.ascontiguousarray(chunk_off, np.int32)
                 gauss = np.empty((B, T), np.float32)
                 lib.threefry_normal_fill(
@@ -264,8 +267,6 @@ class EventWireDecoder:
                     ridx.ctypes.data_as(i32p), coff.ctypes.data_as(i32p),
                     B, T, gauss.ctypes.data_as(f32p),
                 )
-            else:
-                gauss = np.ascontiguousarray(np.asarray(gauss_fut))
             self.timers["noise_wait"] += time.perf_counter() - _t
             _t = time.perf_counter()
             flat = np.empty(B * T, np.int16)
@@ -337,10 +338,9 @@ class EventWireDecoder:
                      np.full((B, 1), sigma_tail, np.float32)], axis=1,
                 )  # (B, K+1) ADC counts
                 sigma_f = np.take_along_axis(sigma_ev, seg, 1)
-                noisy = np.asarray(gauss_fut)
-                noisy = noisy * sigma_f
+                noisy = gauss * sigma_f
             else:
-                noisy = np.asarray(gauss_fut) * np.float32(
+                noisy = gauss * np.float32(
                     knobs.noise_std * cpr
                 )
             noisy += clean_q
@@ -383,22 +383,19 @@ class EventWireDecoder:
         T = self._frames if self._frames is not None else stream.shape[1] * 4
         self._T = T
         rows = np.arange(B, dtype=np.intp)[:, None]
-        # dp-sharded batches concatenate per-shard flat buffers; no offsets
-        # ship on the wire — rows consume each buffer in row-major order,
-        # so per-row starts derive from shard-local cumulative counts.
-        dp = self._dp_shards
-        B_s = B // dp
-        cap_esc_s = esc.size * 2 // dp  # nibbles per shard
-        cap_wide_s = B_s // 4  # i32 slots per shard (byte-packed)
-        cap_lvl_s = B_s  # u16 escaped-level slots per shard
+        # The batch-flat buffers ship no offsets: rows consume each buffer in
+        # row-major order, so per-row starts are exclusive cumulative counts.
+        cap_esc = esc.size * 2  # nibbles
+        cap_wide = B // 4  # i32 slots (byte-packed)
+        cap_lvl = B  # u16 escaped-level slots
 
         lib = _native_lib() if self._use_native else None
         native = lib is not None and T <= 255
 
-        gauss_fut = None
-        if knobs.noise_std > 0 and not (native and self._native_noise):
+        gauss = None
+        if knobs.noise_std > 0 and not native:
             _t = time.perf_counter()
-            gauss_fut = self._noise(read_idx, chunk_off)
+            gauss = self._noise(read_idx, chunk_off)
             self.timers["noise_dispatch"] += time.perf_counter() - _t
         self.native_used = native
 
@@ -428,9 +425,15 @@ class EventWireDecoder:
             f32p = ctypes.POINTER(ctypes.c_float)
             i8p = ctypes.POINTER(ctypes.c_int8)
             ridx = np.ascontiguousarray(read_idx, np.int32)
+            coff = np.ascontiguousarray(chunk_off, np.int32)
             flat = np.empty(B * T, np.int16)
             counts = np.empty(B, np.int32)
-            common = (
+            # The C++ decoder regenerates each row's threefry normals inside
+            # its vector pass: no (B, T) gauss buffer exists at all. Its
+            # per-shard capacities are the batch's: the batch is one shard.
+            _t = time.perf_counter()
+            _tc = time.thread_time()
+            total = lib.ulp_event_wire_decode_fused(
                 np.ascontiguousarray(stream).ctypes.data_as(u8p),
                 np.ascontiguousarray(lvl0).ctypes.data_as(u16p),
                 np.ascontiguousarray(lvl_d).ctypes.data_as(i8p),
@@ -439,42 +442,16 @@ class EventWireDecoder:
                 np.ascontiguousarray(esc).ctypes.data_as(u8p),
                 np.ascontiguousarray(lvl_esc).ctypes.data_as(u16p),
                 np.ascontiguousarray(wide_b).ctypes.data_as(u8p),
-            )
-            tail = (
-                B, T, K, B_s, cap_esc_s, cap_wide_s, cap_lvl_s,
+                self._key_words[0], self._key_words[1],
+                coff.ctypes.data_as(i32p), ridx.ctypes.data_as(i32p),
+                B, T, K, B, cap_esc, cap_wide, cap_lvl,
                 noise_mode, sigma_scale_pa, sigma_tail_pa,
                 np.float32(knobs.noise_std), scale_s, dig, rng_f, offset,
                 flat.ctypes.data_as(i16p),
                 counts.ctypes.data_as(i32p),
             )
-            if self._native_noise:
-                # Fused path: the C++ decoder regenerates each row's
-                # threefry normals inside its vector pass — no (B, T)
-                # gauss buffer exists at all.
-                coff = np.ascontiguousarray(chunk_off, np.int32)
-                _t = time.perf_counter()
-                _tc = time.thread_time()
-                total = lib.ulp_event_wire_decode_fused(
-                    *common,
-                    self._key_words[0], self._key_words[1],
-                    coff.ctypes.data_as(i32p), ridx.ctypes.data_as(i32p),
-                    *tail,
-                )
-                self.timers["rebuild"] += time.perf_counter() - _t
-                self.timers["rebuild_cpu"] += time.thread_time() - _tc
-            else:
-                _t = time.perf_counter()
-                gauss = (np.ascontiguousarray(np.asarray(gauss_fut))
-                         if noise_mode else None)
-                self.timers["noise_wait"] += time.perf_counter() - _t
-                _t = time.perf_counter()
-                total = lib.ulp_event_wire_decode(
-                    *common,
-                    gauss.ctypes.data_as(f32p) if gauss is not None else None,
-                    ridx.ctypes.data_as(i32p),
-                    *tail,
-                )
-                self.timers["rebuild"] += time.perf_counter() - _t
+            self.timers["rebuild"] += time.perf_counter() - _t
+            self.timers["rebuild_cpu"] += time.thread_time() - _tc
             if total == ctypes.c_size_t(-1).value:
                 raise RuntimeError(
                     "wire-format exception overflow: escape buffer bounds "
@@ -485,16 +462,9 @@ class EventWireDecoder:
         # ---- numpy fallback (parity oracle) ----
         _t = time.perf_counter()
 
-        def shard_excl_offsets(row_counts):
-            """Per-row exclusive start offsets into a shard-local flat
-            buffer: rows consume the buffer in row-major order, so the
-            offsets are shard-local cumulative counts (what the wire used
-            to ship explicitly)."""
-            cum = np.cumsum(row_counts) - row_counts  # global exclusive
-            base = np.repeat(cum[0::B_s], B_s)[:B]
-            return (cum - base).astype(np.intp)
-
-        shard = rows // B_s  # (B, 1)
+        def excl_offsets(row_counts):
+            """Per-row exclusive start offsets into a batch-flat buffer."""
+            return (np.cumsum(row_counts) - row_counts).astype(np.intp)
 
         # Event levels: u16 anchor + i8 deltas vs the previous non-zero
         # level; -128 = zero level, -127 = escape (exact u16 in lvl_esc).
@@ -502,12 +472,9 @@ class EventWireDecoder:
         is_zero_l = lvl_d_i == -128
         is_esc_l = lvl_d_i == -127
         lrank = np.cumsum(is_esc_l, axis=1) - is_esc_l
-        lvl_off = shard_excl_offsets(is_esc_l.sum(axis=1))
-        glidx = shard * cap_lvl_s + lvl_off[:, None] + lrank
+        glidx = excl_offsets(is_esc_l.sum(axis=1))[:, None] + lrank
         if is_esc_l.any():
-            cap_end = (shard + 1) * cap_lvl_s
-            if (glidx[is_esc_l]
-                    >= np.broadcast_to(cap_end, glidx.shape)[is_esc_l]).any():
+            if (glidx[is_esc_l] >= cap_lvl).any():
                 raise RuntimeError(
                     "wire-format exception overflow: level-escape buffer "
                     "bounds exceeded at the ULP event tier"
@@ -537,14 +504,12 @@ class EventWireDecoder:
         d = (sym == 1).astype(np.int32) - (sym == 2).astype(np.int32)
         is_esc = sym == 3
         esc_i = is_esc.astype(np.int32)
-        # Global nibble index per escape: shard base + derived row offset
-        # + row-local exclusive rank (row-major stream order, as packed).
+        # Flat nibble index per escape: derived row offset + row-local
+        # exclusive rank (row-major stream order, as packed).
         rank = np.cumsum(esc_i, axis=1) - esc_i
-        esc_off = shard_excl_offsets(esc_i.sum(axis=1))
-        gidx = shard * cap_esc_s + esc_off[:, None] + rank
+        gidx = excl_offsets(esc_i.sum(axis=1))[:, None] + rank
         if is_esc.any():
-            cap_end = (shard + 1) * cap_esc_s
-            if (gidx[is_esc] >= np.broadcast_to(cap_end, gidx.shape)[is_esc]).any():
+            if (gidx[is_esc] >= cap_esc).any():
                 raise RuntimeError(
                     "wire-format exception overflow: escape buffer bounds "
                     "exceeded at the ULP event tier"
@@ -559,26 +524,18 @@ class EventWireDecoder:
         is_wide = is_esc & (esc_vals == 0)  # nibble 8 marks a wide jump
         wide_i = is_wide.astype(np.int32)
         wrank = np.cumsum(wide_i, axis=1) - wide_i
-        wide_off = shard_excl_offsets(wide_i.sum(axis=1))
-        gwidx = shard * cap_wide_s + wide_off[:, None] + wrank
+        gwidx = excl_offsets(wide_i.sum(axis=1))[:, None] + wrank
         if is_wide.any():
-            cap_end = (shard + 1) * cap_wide_s
-            if (gwidx[is_wide]
-                    >= np.broadcast_to(cap_end, gwidx.shape)[is_wide]).any():
+            if (gwidx[is_wide] >= cap_wide).any():
                 raise RuntimeError(
                     "wire-format exception overflow: wide-jump buffer "
                     "bounds exceeded at the ULP event tier"
                 )
-        # The wide buffer ships as bytes (one per row, zero-padded); each
-        # shard's i32 slots occupy the first cap_wide_s*4 bytes of its span.
-        wb = wide_b.reshape(dp, B_s)
-        wide_flat = np.zeros(max(dp * cap_wide_s, 1), np.int32)
-        for s in range(dp):
-            if cap_wide_s:
-                wide_flat[s * cap_wide_s:(s + 1) * cap_wide_s] = (
-                    np.ascontiguousarray(wb[s, :cap_wide_s * 4])
-                    .view(np.int32)
-                )
+        # The wide buffer ships as bytes (one per row, zero-padded); its i32
+        # slots occupy the first cap_wide*4 bytes.
+        wide_flat = np.zeros(max(cap_wide, 1), np.int32)
+        wide_flat[:cap_wide] = np.ascontiguousarray(
+            wide_b.reshape(-1)[:cap_wide * 4]).view(np.int32)
         wide_vals = wide_flat[np.minimum(gwidx, wide_flat.size - 1)]
         d = np.where(is_esc, np.where(is_wide, wide_vals, esc_vals), d)
 
@@ -613,7 +570,6 @@ class EventWireDecoder:
             if noise_mode == 0:
                 pn = p
             else:
-                gauss = np.asarray(gauss_fut)
                 if noise_mode == 2:
                     sigma_ev = np.concatenate(
                         [sigma_q.astype(np.float32) * sigma_scale_pa,

@@ -482,6 +482,27 @@ def test_ulp_probe_steps_small_batches_down(tmp_path, caplog):
     assert d.max() <= 1
 
 
+def test_rows_past_256_frames_decode_through_numpy(tmp_path):
+    """At T = 300 the C++ delta decoder, whose rows end at 256 frames, is
+    passed over: stats count every batch as numpy's, and the records equal
+    the raw run's. (12 bits: the random weights' jumps overflow int8.)"""
+    assert load_native() is not None
+    fasta = _write_fasta(tmp_path / "in.fasta", 3, seed=6)
+    kw = dict(config=dict(load_config(None), compute_dtype="float32", max_signal_len=300),
+              saved_weights="random")  # the checkpoint's positions end at 250
+    tsimulate.simulate_run(**_run_kwargs(fasta, tmp_path / "raw.blow5", wire_format="raw", **kw),
+                           device=CPU)
+    assert tsimulate.start_wire_bits("auto", kw["config"]) == 8
+    stats = tsimulate.simulate_run(**_run_kwargs(fasta, tmp_path / "a.blow5", wire_format="12",
+                                                 **kw), device=CPU)
+    assert stats["wire_bits"] == 12
+    assert stats["wire_decode"]["native"] == 0 and stats["wire_decode"]["numpy"] >= 1
+    got, raw = _records(tmp_path / "a.blow5"), _records(tmp_path / "raw.blow5")
+    assert [r for r, _ in got] == [r for r, _ in raw] and len(got) == 3
+    for (_, a), (_, b) in zip(got, raw):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.gpu
 def test_packers_on_the_card_match_the_cpu(host_params):
     """chip_smoke.py phase 14's packer check: each tier's framed bytes from
