@@ -47,7 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      `pallas_train: false` (loss within 1e-2 relative);
   7. train path at `pallas_train: core`: chunk files written from seed 7,
      then the `train` command at full width (bf16, batch 512), one epoch of
-     10 steps; core forward launches must be 2 x (train + valid steps) and
+     10 steps (--save_valid_plots false: phase 10 makes the plots); core
+     forward launches must be 2 x (train + valid steps) and
      backward launches 2 x train steps, every logged loss finite, the
      checkpoint files present, model.npz validating at the logged loss and
      running one predict_step;
@@ -80,7 +81,9 @@ Phases (any failure raises and the script exits non-zero):
      steps and core launches 0, every logged loss finite, the validation loss
      lower at the end than for the initial parameters, the checkpoint files
      present, model.npz loading and running one predict_step, and `--resume`
-     running exactly the third epoch;
+     running exactly the third epoch; at the default --save_valid_plots
+     true the run writes each epoch's validation plots (on the plain f32
+     blocks, so the launch counts stay exact), which phase 15 checks;
  11. pair and `packed` vs plain: the two-block kernel against its plain
      version (bars of phase 2) and against two one-block launches (bit-equal)
      at 1024 x 250, a ragged (3, 37) and, at batch 16, on both sides of the
@@ -126,7 +129,24 @@ Phases (any failure raises and the script exits non-zero):
      recomputed raw, then the step-down) and equals its raw run; every packed batch
      decoded by the C++ codec; the tier each run settled on, bytes per row,
      the stage timers per batch at auto and raw and each run's kSamples/s
-     printed beside the card's name and power limit.
+     printed beside the card's name and power limit;
+ 15. the rest of training and the command line, at full width (the default
+     config, bf16, batch 512): phase 10's PNGs (batch_{b}_reference.png and
+     _all_signals.png for b < 12 in epoch_0..2, no "Validation plots failed";
+     "PNGs NOT MADE: no matplotlib" where the machine lacks it), the plot
+     arrays of 12 sequences on the card against the same call on the CPU
+     (same parameters, batch and key: the sampled durations equal, every
+     array within rtol 2e-3 / atol 2e-4 x 165 pA) and one epoch's plots
+     timed; the `train` command with `optimizer: AdaFactor` for one epoch of
+     10 steps + 2 validation steps (phase 10's checks, block launches exact,
+     254 optimizer leaves in train_state.npz), three AdaFactor updates of the
+     default config's 84 leaf shapes plus a factored (130, 136) leaf on the
+     card against the CPU from the same f32 parameters and gradients (rtol
+     1e-4 / atol 1e-7), and the train step's ms with Adam and with AdaFactor
+     (interleaved); `sweep --sweep-id grid.yaml --count 2` (two trials of one
+     epoch of 3 steps + 2 validation steps: 2 rows with finite
+     valid_total_loss, block launches exactly 2 x the trials' steps); and
+     `version` naming the card.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches on its main path (for the profiling kernels: in their timing
@@ -142,6 +162,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -1137,15 +1158,17 @@ def _train_batch(cfg, B, seed):
 def make_chunks(rng, n, cfg):
     """Synthetic training chunks a model can learn: each k-mer's level is a
     fixed linear function of its one-hot, held for its dwell and blurred by
-    noise of its own stdev. Returns (one-hot (n, K, k*5) f16, targets (n, T)
-    f32 in pA, dwells (n, K) i16, stdevs (n, K) f32)."""
+    noise of its own stdev. Returns (one-hot (n, K, k, 5) f16, as preprocess
+    writes it, targets (n, T) f32 in pA, dwells (n, K) i16, stdevs (n, K)
+    f32). The dwells of a row sum to at most T (<= 15 x 16 = 240), as
+    preprocess keeps only such chunks (the validation plots need it)."""
     K, k, T = cfg["max_dna_len"], cfg["seq_kmer"], cfg["max_signal_len"]
     table = np.random.default_rng(SEED).standard_normal(k * 5).astype(np.float32)
     table -= table.mean()  # levels centred on 90 pA
     codes = rng.integers(0, 4, (n, K, k))
-    one_hot = np.eye(5, dtype=np.float16)[codes].reshape(n, K, k * 5)
-    level = 90.0 + 12.0 * (one_hot.astype(np.float32) @ table)  # (n, K) pA
-    dwell = rng.integers(4, 24, (n, K)).astype(np.int16)
+    one_hot = np.eye(5, dtype=np.float16)[codes]
+    level = 90.0 + 12.0 * (one_hot.reshape(n, K, k * 5).astype(np.float32) @ table)  # (n, K) pA
+    dwell = rng.integers(4, 16, (n, K)).astype(np.int16)
     stdev = (1.0 + 2.0 * rng.random((n, K))).astype(np.float32)
     ends = np.minimum(np.cumsum(dwell, axis=1), T)
     seg = (np.arange(T)[None, :, None] >= ends[:, None, :]).sum(-1)  # (n, T) in [0, K]
@@ -1231,10 +1254,32 @@ def _write_chunk_dir(path: pathlib.Path, rng, n_files: int, per_file: int, cfg) 
             np.save(path / f"{name}-{i:04d}.npy", arr)
 
 
-def phase_train_main_path(dev, mode, epochs, steps, resume):
-    """Phases 7 and 10: the `train` command at full width, launches counted.
-    mode: the `pallas_train` override, or None for the default config (which
-    takes the block rung in bf16 on a GPU). Returns the run's launch counts."""
+class _Logged(logging.Handler):
+    """Collects the port's log messages at `level` and above while a command
+    runs."""
+
+    def __init__(self, level=logging.WARNING):
+        super().__init__(level)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("seq2squiggle_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("seq2squiggle_tpu_torch").removeHandler(self)
+
+
+def phase_train_main_path(dev, mode, epochs, steps, resume, optimizer=None, plots=True):
+    """Phases 7 and 10 (and phase 15's AdaFactor run): the `train` command at
+    full width, launches counted. mode: the `pallas_train` override, or None
+    for the default config (which takes the block rung in bf16 on a GPU);
+    optimizer: the config's, or None for its default (Adam); plots: the
+    default (--save_valid_plots true) or false. Returns the run's launch
+    counts, the PNG files under each epoch_<n>/ and the port's warnings."""
     import yaml
 
     from seq2squiggle_tpu_torch import cli, prng
@@ -1248,8 +1293,10 @@ def phase_train_main_path(dev, mode, epochs, steps, resume):
     over = {"max_epochs": epochs, "train_batch_size": TRAIN_BATCH}
     if mode is not None:
         over["pallas_train"] = mode
+    if optimizer is not None:
+        over["optimizer"] = optimizer
     cfg = dict(load_config(None), **over)  # bf16 compute, Adam, warmup_cosine, clip 1.0
-    name = f"pallas_train: {cfg['pallas_train']}"
+    name = f"pallas_train: {cfg['pallas_train']}, {cfg['optimizer']}"
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         tmp = pathlib.Path(tmp)
@@ -1276,9 +1323,12 @@ def phase_train_main_path(dev, mode, epochs, steps, resume):
 
         args = ["train", str(tmp / "train"), str(tmp / "valid"), "-m", str(model),
                 "-s", str(SEED), "-v", "warning"]
+        if not plots:
+            args += ["--save_valid_plots", "false"]
         _reset_launch_counts()
         t0 = time.perf_counter()
-        cli.main([*args, "-y", str(tmp / "cfg.yaml")], standalone_mode=False)
+        with _Logged() as warned:
+            cli.main([*args, "-y", str(tmp / "cfg.yaml")], standalone_mode=False)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _launch_counts()
@@ -1311,24 +1361,213 @@ def phase_train_main_path(dev, mode, epochs, steps, resume):
               and (n_samples >= 0).all() and n_samples.max() > 0,
               "trained checkpoint: predict_step output")
 
-        check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == last,
-              f"train_state.npz does not record epoch {last}")
+        state = load_train_state(str(tmp / "ckpt" / "train_state.npz"))
+        check(state["epoch"] == last, f"train_state.npz does not record epoch {last}")
+        if cfg["optimizer"] == "AdaFactor":  # optax's flattening of its state
+            check(len(state["opt_leaves"]) == 254,
+                  f"AdaFactor's train state has {len(state['opt_leaves'])} leaves, want 254")
         if resume:
             _reset_launch_counts()
-            cli.main([*args, "-y", str(tmp / "cfg_more.yaml"), "--resume"],
-                     standalone_mode=False)
+            with warned:
+                cli.main([*args, "-y", str(tmp / "cfg_more.yaml"), "--resume"],
+                         standalone_mode=False)
             check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == epochs
                   and (tmp / "ckpt" / f"model-epoch{epochs}.npz").exists()
                   and _launch_counts()[1] == 2 * steps,
                   f"--resume did not run exactly epoch {epochs} "
                   f"({_launch_counts()[1]} backward launches)")
+        pngs = {int(d.name.split("_")[1]): sorted(f.name for f in d.iterdir())
+                for d in (tmp / "ckpt").glob("epoch_*")}
     log(f"train path at {name}: {n_train} train + {n_valid} valid steps of {TRAIN_BATCH} "
         f"chunks in {seconds:.3f} s ({n_train / seconds:.2f} steps/s, "
         f"{n_train * TRAIN_BATCH / seconds:.0f} chunks/s, wall time of the whole command "
-        f"with data loading, validation and checkpoints); validation loss {loss0:.5f} -> "
+        f"with data loading, validation, plots and checkpoints); validation loss {loss0:.5f} -> "
         f"{loss1:.5f}; launches (block forward, block backward, core forward, core backward) "
         f"{counts}" + (f"; --resume ran epoch {epochs}" if resume else ""))
-    return counts
+    return counts, pngs, warned.messages
+
+
+def _adafactor_updates(device, n_updates: int = 3):
+    """AdaFactor at the default config's 84 leaf shapes plus one factored
+    (130, 136) leaf, from the same f32 parameters and gradients (seed 7,
+    gradient norms on both sides of the clip): the parameters after each
+    update, and the state's leaves at the end, on the host."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.train.optimizers import build_optimizer, factored_dims
+
+    cfg = dict(load_config(None), optimizer="AdaFactor")
+    shapes = [tuple(v.shape) for _, v in
+              fft_model.tree_leaves(fft_model.init_params(cfg, prng.key(SEED)))]
+    shapes.append((130, 136))
+    assert factored_dims(shapes[-1]) is not None and not any(map(factored_dims, shapes[:-1]))
+    rng = np.random.default_rng(SEED)
+    params = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device)
+              for sh in shapes]
+    opt = build_optimizer(cfg, 10)
+    state = opt.init(params)
+    out = []
+    for scale in (0.002, 0.5, 0.02)[:n_updates]:
+        grads = [torch.from_numpy((rng.standard_normal(sh) * scale).astype(np.float32))
+                 .to(device) for sh in shapes]
+        opt.update(grads, state, params)
+        out.append([p.detach().clone().cpu() for p in params])
+    return out, opt.state_leaves(state)
+
+
+def _train_step_ms(dev, optimizer: str, rounds: int = 3, steps: int = 5) -> float:
+    """The median ms of the default config's train step (bf16, batch 512,
+    the block rung) with `optimizer`, host clock around synchronize."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.train.loop import make_train_step
+    from seq2squiggle_tpu_torch.train.optimizers import build_optimizer
+
+    cfg = dict(load_config(None), optimizer=optimizer)
+    params = fft_model.to_train_params(fft_model.init_params(cfg, prng.key(SEED)), dev)
+    opt = build_optimizer(cfg, 1000)
+    state = opt.init([v for _, v in fft_model.tree_leaves(params)])
+    step = make_train_step(cfg, opt)
+    batch, mask = _train_batch(cfg, TRAIN_BATCH, seed=5)
+    batch, mask = {k: v.to(dev) for k, v in batch.items()}, mask.to(dev)
+    times = []
+    for r in range(rounds + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(params, state, batch, mask, prng.fold_in(prng.key(SEED, dev), r * steps + i))
+        torch.cuda.synchronize()
+        if r:  # the first round warms up
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+    return statistics.median(times)
+
+
+def phase_train_rest(dev, smi, pngs, warnings):
+    """Phase 15: the rest of training and the command line at full width."""
+    import importlib.util
+
+    import yaml
+
+    from seq2squiggle_tpu_torch import cli, prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.train.plots import generate_validation_plots, validation_arrays
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    # -- the plots of phase 10's run (two epochs and the resumed third)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if has_mpl:
+        want = sorted(f"batch_{b}_{kind}.png" for b in range(12)
+                      for kind in ("reference", "all_signals"))
+        check(sorted(pngs) == [0, 1, 2] and all(pngs[e] == want for e in pngs),
+              f"phase 10's plots: {pngs}")
+        check(not [w for w in warnings if "Validation plots failed" in w],
+              f"phase 10 logged {warnings}")
+        log(f"plots: phase 10 wrote {sum(map(len, pngs.values()))} PNGs in epoch_0..2, "
+            "no plot failed")
+    else:
+        log("PNGs NOT MADE: no matplotlib")
+    # -- the plot arrays on the card against the same call on the CPU
+    cfg = load_config(None)
+    host = fft_model.init_params(cfg, prng.key(SEED))
+    batch, _ = _train_batch(cfg, TRAIN_BATCH, seed=3)
+    key = prng.fold_in(prng.key(SEED), 10_000)
+    card_params = fft_model.to_train_params(host, dev)
+    validation_arrays(card_params, cfg, batch, key.to(dev))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = validation_arrays(card_params, cfg, batch, key.to(dev))
+    arrays_s = time.perf_counter() - t0  # ends in the copies to the host
+    on_cpu = validation_arrays(fft_model.to_train_params(host, cpu), cfg, batch, key)
+    check(np.array_equal(on_card["sampled_dur"], on_cpu["sampled_dur"]),
+          "plots: the card sampled other durations than the CPU")
+    worst = 0.0
+    for name in ("pred_idealtime", "pred_idealamp", "pred_full"):
+        a, b = on_card[name], on_cpu[name]
+        bar = 2e-3 * np.abs(b) + 2e-4 * cfg["scaling_max_value"]
+        check(a.shape == (12, cfg["max_signal_len"]) and bool(np.all(np.abs(a - b) <= bar)),
+              f"plots: {name} on the card misses the CPU's by {np.abs(a - b).max()}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    log(f"plots: arrays of 12 sequences on the card vs the CPU: durations equal, "
+        f"max|Δ| {worst:.3g} pA (bar rtol 2e-3 / atol 2e-4 x 165); on the card in "
+        f"{arrays_s:.4f} s ({smi})")
+    if has_mpl:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            t0 = time.perf_counter()
+            generate_validation_plots(card_params, cfg,
+                                      {k: v.to(dev) for k, v in batch.items()}, 0, tmp,
+                                      key.to(dev))
+            plot_s = time.perf_counter() - t0
+            check(len(list(pathlib.Path(tmp, "epoch_0").iterdir())) == 24, "plots: 24 PNGs")
+        log(f"plots: one epoch's 24 PNGs in {plot_s:.2f} s ({smi})")
+
+    # -- AdaFactor: the train command (phase 10's checks), updates vs the CPU, step time
+    counts, _, _ = phase_train_main_path(dev, None, epochs=1, steps=CORE_STEPS, resume=False,
+                                         optimizer="AdaFactor", plots=False)
+    (card, card_state), (host_upd, host_state) = (_adafactor_updates(dev),
+                                                  _adafactor_updates(cpu))
+    for i, (a_list, b_list) in enumerate(zip(card, host_upd)):
+        for j, (a, b) in enumerate(zip(a_list, b_list)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7,
+                                       msg=lambda m: f"AdaFactor update {i} leaf {j}: {m}")
+    for j, (a, b) in enumerate(zip(card_state, host_state)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-7, err_msg=f"state leaf {j}")
+    log(f"AdaFactor: 3 updates of 85 leaves (one factored, (130, 136)) on the card vs the "
+        f"CPU within rtol 1e-4 / atol 1e-7; state {len(card_state)} leaves")
+    ms = {}
+    for name in ("Adam", "AdaFactor", "AdaFactor", "Adam"):  # interleaved
+        ms.setdefault(name, []).append(_train_step_ms(dev, name))
+    ms = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"train step at batch {TRAIN_BATCH}, bf16, block rung: Adam {ms['Adam']:.2f} ms, "
+        f"AdaFactor {ms['AdaFactor']:.2f} ms (median of 2 x 3 rounds of 5 steps, host clock "
+        f"around synchronize; {smi})")
+
+    # -- sweep: a grid of two trials, one epoch each, launches counted
+    steps, n_trials = 3, 2
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        rng = np.random.default_rng(SEED + 1)
+        _write_chunk_dir(tmp / "train", rng, steps, TRAIN_BATCH, cfg)
+        _write_chunk_dir(tmp / "valid", rng, 1, VALID_STEPS * TRAIN_BATCH, cfg)
+        (tmp / "cfg.yaml").write_text(yaml.safe_dump({"max_epochs": 1,
+                                                       "train_batch_size": TRAIN_BATCH}))
+        (tmp / "grid.yaml").write_text(yaml.safe_dump({
+            "train_dir": str(tmp / "train"), "valid_dir": str(tmp / "valid"),
+            "method": "grid", "parameters": {"lr": {"values": [5e-4, 1e-3]}}}))
+        cwd = pathlib.Path.cwd()
+        os.chdir(tmp)  # a trial without a model path writes ./logs-<log_name>/
+        try:
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(["sweep", "--sweep-id", str(tmp / "grid.yaml"), "--count", str(n_trials),
+                      "-y", str(tmp / "cfg.yaml"), "-s", str(SEED), "-v", "warning"],
+                     standalone_mode=False)
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        counts = _launch_counts()
+        rows = [json.loads(line) for line in open(tmp / "sweep_results.jsonl")]
+    ran = (2 * n_trials * (steps + VALID_STEPS), 2 * n_trials * steps, 0, 0)
+    check(counts == ran, f"sweep: launches {counts} for {n_trials} trials of {steps} train "
+          f"and {VALID_STEPS} valid steps, want {ran}")
+    check(len(rows) == n_trials and all(math.isfinite(r["metrics"]["valid_total_loss"])
+                                        for r in rows), f"sweep rows {rows}")
+    check([r["params"]["lr"] for r in rows] == [5e-4, 1e-3], "sweep: the grid's order")
+    log(f"sweep: grid of {n_trials} trials in {sweep_s:.2f} s, valid_total_loss "
+        + ", ".join(f"{r['metrics']['valid_total_loss']:.5f}" for r in rows)
+        + f"; launches {counts}")
+
+    # -- version: reports the card
+    with _Logged(logging.INFO) as seen:
+        cli.main(["version"], standalone_mode=False)
+    check(any(torch.cuda.get_device_name(0) in m for m in seen.messages),
+          f"version did not name the card: {seen.messages}")
+    log(f"version: {[m for m in seen.messages if m.startswith('devices')]}")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1361,11 +1600,11 @@ def main() -> int:
     launches, _, recs, main_stats = phase_main_path(dev, pair=False)
     core = phase_core_kernels(dev)[torch.bfloat16]
     phase_train_step(dev, "core", "core")
-    _, _, core_fwd_launches, core_bwd_launches = phase_train_main_path(
-        dev, "core", epochs=1, steps=CORE_STEPS, resume=False)
+    (_, _, core_fwd_launches, core_bwd_launches), _, _ = phase_train_main_path(
+        dev, "core", epochs=1, steps=CORE_STEPS, resume=False, plots=False)
     block = phase_block_kernels(dev)[torch.bfloat16]
     phase_train_step(dev, "block", "auto")
-    block_fwd_launches, block_bwd_launches, _, _ = phase_train_main_path(
+    (block_fwd_launches, block_bwd_launches, _, _), pngs, warnings = phase_train_main_path(
         dev, None, epochs=2, steps=TRAIN_STEPS, resume=True)
     pair = phase_pair(params, dev)
     variants, variant_profile, cut_profile = phase_variants(params, dev)
@@ -1376,6 +1615,7 @@ def main() -> int:
     log(f"main path at pallas_pair: true: {len(pair_recs)} records equal to phase 4's")
     phase_other_modes(dev)
     phase_wire(host_params, dev, main_stats, recs, smi)
+    phase_train_rest(dev, smi, pngs, warnings)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16

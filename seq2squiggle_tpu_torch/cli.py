@@ -1,8 +1,10 @@
-"""Command line of the port: `python -m seq2squiggle_tpu_torch predict|train ...`.
+"""Command line of the port: `python -m seq2squiggle_tpu_torch
+predict|preprocess|train|sweep|version ...`.
 
-The flags are the JAX package's (`_SharedParams` and `advanced_options` are
-the port's copies of seq2squiggle_tpu/cli.py:24 and :67), plus the hidden
-`--device` (default cuda). `predict` and `train` are ported so far.
+The commands, flags and defaults are the JAX package's (`_SharedParams` and
+`advanced_options` are the port's copies of seq2squiggle_tpu/cli.py:24 and
+:67), plus the hidden `--device` (default cuda) on the commands that run the
+model: `predict`, `train` and `sweep`.
 """
 
 from __future__ import annotations
@@ -56,12 +58,12 @@ class _SharedParams(click.Command):
 def main():
     """seq2squiggle-tpu on PyTorch/CUDA: nanopore signal simulation on a GPU.
 
-    The port of the JAX package's `predict` and `train` commands. `predict`
-    writes BLOW5, SLOW5 or POD5; --wire-format auto starts at the ULP tier
-    under bf16 compute and steps down on overflow, as in the JAX package;
-    --num-shards and --trace-dir work. Several devices in one process are
-    not ported: one device per process (shard over processes with
-    --num-shards).
+    The port of the JAX package's commands. `predict` writes BLOW5, SLOW5 or
+    POD5; --wire-format auto starts at the ULP tier under bf16 compute and
+    steps down on overflow, as in the JAX package; --num-shards and
+    --trace-dir work. `preprocess` turns an events.tsv into training chunks,
+    `train` and `sweep` train on them. Several devices in one process are not
+    ported: one device per process (shard over processes with --num-shards).
     """
 
 
@@ -264,13 +266,52 @@ def predict(ctx, fasta, read_input, num_reads, read_length, coverage, out,
 
 
 @main.command(cls=_SharedParams)
+@click.argument("events_path", required=True,
+                type=click.Path(exists=True, dir_okay=False))
+@click.argument("outdir", required=True,
+                type=click.Path(dir_okay=True, file_okay=False))
+@click.option("--no_batches", is_flag=True, default=False, show_default=True,
+              help="Process the events.tsv in one shot instead of batches.")
+@click.option("--chunksize", type=int, show_default=True, default=10000000,
+              help="Rows per batch when reading the events.tsv.")
+@click.option("--partition_by", is_flag=True, show_default=True, default=False,
+              help="Partition the events.tsv by read name before chunking.")
+@click.option("--rna", is_flag=True, show_default=True, default=False,
+              help="Process and order the events.tsv for RNA data.")
+def preprocess(events_path, outdir, no_batches, chunksize, partition_by, rna,
+               seed, model, config, verbosity):
+    """Preprocess uncalled4/f5c events.tsv into training .npy chunks.
+
+    EVENTS_PATH must be an events.tsv from uncalled4 or f5c.
+    OUTDIR is the output directory.
+    """
+    setup_logging(verbosity)
+    logger.info("seq2squiggle-tpu (PyTorch port) version %s", __version__)
+    logger.info(f"Preprocessing events.tsv in {'RNA' if rna else 'DNA'} mode.")
+    set_seeds(seed)
+    cfg = load_config(config)
+
+    from .train.preprocess import preprocess_run
+
+    preprocess_run(
+        events_path=events_path,
+        outdir=outdir,
+        batches=not no_batches,
+        chunksize=chunksize,
+        partition_by=partition_by,
+        rna=rna,
+        config=cfg,
+    )
+    logger.info("Preprocessing done.")
+
+
+@main.command(cls=_SharedParams)
 @click.argument("train_dir", required=True,
                 type=click.Path(exists=True, dir_okay=True))
 @click.argument("valid_dir", type=click.Path(exists=True, dir_okay=True),
                 default=None, required=False)
-@click.option("--save_valid_plots", default=False, type=bool,
-              help="Save validation plots during training (not ported yet: "
-              "true is an error).")
+@click.option("--save_valid_plots", default=True, type=bool,
+              help="Save validation plots during training.")
 @click.option("--resume", is_flag=True, default=False, show_default=True,
               help="Resume from the train_state.npz next to the model path "
               "(restores optimizer state and epoch).")
@@ -316,6 +357,56 @@ def train(train_dir, valid_dir, save_valid_plots, resume, tensor_parallel, devic
         device=torch_device,
     )
     logger.info("Training done.")
+
+
+@main.command(cls=_SharedParams)
+@click.option("--sweep-id", type=str, required=True,
+              help="Sweep id ('user/project/id' for wandb, or a local YAML "
+              "search-space file for offline sweeps).")
+@click.option("--count", type=int, default=200, show_default=True,
+              help="Number of sweep trials.")
+@click.option("--device", default="cuda", show_default=True, hidden=True,
+              help="Torch device to run on (cuda, cuda:N or cpu). A cuda "
+              "device that is not there is an error.")
+def sweep(sweep_id, count, device, seed, model, config, verbosity):
+    """Run a hyperparameter sweep (wandb agent, or offline random search)."""
+    setup_logging(verbosity)
+    logger.info("seq2squiggle-tpu (PyTorch port) version %s", __version__)
+
+    from .device import resolve_device
+    from .train.sweep import sweep_run
+
+    torch_device = resolve_device(device)
+    logger.info(f"Device: {torch_device}")
+    resolved_seed = set_seeds(seed)
+    cfg = load_config(config)
+    sweep_run(sweep_id=sweep_id, count=count, config=cfg, seed=resolved_seed,
+              device=torch_device)
+
+
+@main.command()
+def version():
+    """Get the version of seq2squiggle-tpu (PyTorch port), of torch and CUDA,
+    of its core dependencies, and the CUDA devices by name. It only reports:
+    no device work, and no GPU is needed."""
+    setup_logging("info")
+    import importlib.metadata as _md
+
+    import torch
+
+    logger.info(f"seq2squiggle-tpu (PyTorch port): {__version__}")
+    logger.info(f"torch: {torch.__version__}")
+    logger.info(f"CUDA: {torch.version.cuda or 'not built with CUDA'}")
+    for dep in ("numpy", "pyarrow", "zstandard"):
+        try:
+            logger.info(f"{dep}: {_md.version(dep)}")
+        except Exception:
+            logger.info(f"{dep}: not installed")
+    if torch.cuda.is_available():
+        names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+        logger.info(f"devices: {names}")
+    else:
+        logger.info("devices: no CUDA device")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ detached pre-PE embedding, ground-truth durations through the one-hot length
 regulator), the same three-term loss, optimizer and schedule menu, dropout
 keys (`fold_in(base_key, step)` per step, split four ways), per-epoch
 weights-only checkpoints, a full train state (parameters + optimizer state)
-for `--resume`, and metrics every 100 steps. Checkpoints and train states
-are the JAX package's files: either package loads the other's.
+for `--resume`, first-batch validation plots and metrics every 100 steps.
+Checkpoints and train states are the JAX package's files: either package
+loads the other's, and the port also resumes from the JAX package's legacy
+`train_state.pkl` (read without jax or optax, see `_LegacyUnpickler`).
 
 The step is eager PyTorch: loss, `.backward()`, the optimizer's update in
 place. The decoder's two blocks take the rung `pallas_train` names
@@ -16,17 +18,20 @@ hand-written forward and backward kernels of ops/block_train.py; `core` runs
 only the attention core through those of ops/attn_core.py; `false` (and
 `auto` in float32 or on the CPU) is plain PyTorch.
 
-Not ported (each raises NotImplementedError): `tensor_parallel > 1` and more
-than one device or process, `--save-valid-plots`, the legacy `.pkl` train
-state. There is no probe ladder: a kernel that fails to build or launch
-raises, and no rung steps down to another.
+Not ported (raises NotImplementedError): `tensor_parallel > 1` and more
+than one device or process. There is no probe ladder: a kernel that fails to
+build or launch raises, and no rung steps down to another. A validation plot
+that fails logs a warning and training goes on, as in the JAX package; the
+plots run in float32 on the plain blocks, so no kernel runs inside them.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import os
+import pickle
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -135,14 +140,69 @@ def _save_train_state(path: str, host_params, opt_leaves: List[np.ndarray], epoc
     os.replace(tmp, path)  # atomic: a crash mid-save keeps the old state
 
 
+# The globals a train_state.pkl written by the JAX package names: optax's
+# state classes (stand-ins with the same fields) and jax's array rebuild.
+_OPTAX_STATES = {
+    ("optax._src.base", "EmptyState"): (),
+    ("optax._src.transform", "ScaleByAdamState"): ("count", "mu", "nu"),
+    ("optax._src.transform", "ScaleByRmsState"): ("nu",),
+    ("optax._src.transform", "ScaleByScheduleState"): ("count",),
+    ("optax._src.factorized", "FactoredState"): ("count", "v_row", "v_col", "v"),
+}
+_STAND_INS = {key: collections.namedtuple(key[1], fields)
+              for key, fields in _OPTAX_STATES.items()}
+_NUMPY_GLOBALS = {
+    (mod, name) for mod in ("numpy._core.multiarray", "numpy.core.multiarray")
+    for name in ("_reconstruct", "scalar")
+} | {("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode")}
+
+
+def _rebuild_jax_array(fun, args, arr_state, aval_state):
+    """jax._src.array._reconstruct_array without the device: the numpy array."""
+    arr = fun(*args)
+    arr.__setstate__(arr_state)
+    return arr
+
+
+class _LegacyUnpickler(pickle.Unpickler):
+    """Reads the JAX package's legacy train_state.pkl without jax or optax:
+    jax arrays come back as numpy arrays, optax states as namedtuples with
+    the same fields; any other global is refused."""
+
+    def find_class(self, module, name):
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _rebuild_jax_array
+        if (module, name) in _STAND_INS:
+            return _STAND_INS[(module, name)]
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"train_state.pkl names the global {module}.{name}, which a train "
+            "state written by the JAX package does not hold; refusing to load it")
+
+
+def _tree_leaves(tree) -> list:
+    """jax.tree_util.tree_leaves: dict keys sorted, sequences and namedtuple
+    fields in order, None (and an empty state) no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _tree_leaves(v)]
+    return [tree]
+
+
 def load_train_state(path: str):
-    """Load a format-1 train state; returns {params, opt_leaves, epoch} with
-    numpy leaves."""
+    """Load a train state; returns {params, opt_leaves, epoch} with numpy
+    leaves. Dispatches on extension: .npz is format 1; .pkl is the JAX
+    package's legacy raw pickle, loadable once so that a run can resume."""
     if path.endswith(".pkl"):
-        raise NotImplementedError(
-            "the legacy train_state.pkl format is not ported (ROADMAP.md, module "
-            "queue A11b); resume it once with the JAX package, which rewrites it "
-            "as train_state.npz")
+        with open(path, "rb") as fh:
+            legacy = _LegacyUnpickler(fh).load()
+        return {"params": legacy["params"],
+                "opt_leaves": [np.asarray(x) for x in _tree_leaves(legacy["opt_state"])],
+                "epoch": int(legacy["epoch"])}
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files}
     meta = json.loads(bytes(flat.pop("__meta__")).decode("utf-8"))
@@ -152,15 +212,11 @@ def load_train_state(path: str):
     return {"params": params, "opt_leaves": opt_leaves, "epoch": int(meta["epoch"])}
 
 
-def _check_supported(config: dict, save_valid_plots: bool) -> None:
+def _check_supported(config: dict) -> None:
     if max(1, int(config.get("tensor_parallel", 1))) > 1:
         raise NotImplementedError(
             "tensor_parallel > 1 (and training over more than one device or "
             "process) is not ported to the GPU yet (ROADMAP.md, module queue A12)")
-    if save_valid_plots:
-        raise NotImplementedError(
-            "--save_valid_plots is not ported to the GPU yet (ROADMAP.md, module "
-            "queue A11b); pass --save_valid_plots false")
 
 
 def train_run(
@@ -178,7 +234,7 @@ def train_run(
     """Train a model on `device` (a CUDA device that is not there raises);
     returns the final metrics. Checkpoints land next to model_path (or in
     ./logs-<log_name>/, as the reference does)."""
-    _check_supported(config, save_valid_plots)
+    _check_supported(config)
     device = resolve_device(device)
     if model_path is not None:
         log_dir, filename = os.path.split(str(model_path))
@@ -268,8 +324,11 @@ def train_run(
         # ---- validation ----
         val_accum: Dict[str, torch.Tensor] = {}
         n_val = 0
+        first_batch = None
         for batch, mask in epoch_batches(valid_ds, batch_size, rng, shuffle=False):
             batch, mask = place_batch(batch, mask)
+            if first_batch is None:
+                first_batch = batch
             for k, v in valid_step(params, batch, mask).items():
                 val_accum[k] = val_accum.get(k, 0.0) + v.double()
             n_val += 1
@@ -279,6 +338,15 @@ def train_run(
             last_metrics.update(val_metrics)
             logger.info(f"epoch {epoch}: "
                         + ", ".join(f"{k}={v:.5f}" for k, v in val_metrics.items()))
+
+        if save_valid_plots and first_batch is not None:
+            try:
+                from .plots import generate_validation_plots
+
+                generate_validation_plots(params, config, first_batch, epoch, log_dir,
+                                          prng.fold_in(base_key, 10_000 + epoch))
+            except Exception as exc:  # plots must never stop training
+                logger.warning(f"Validation plots failed: {exc}")
 
         # ---- checkpoints: weights-only npz per epoch (save_top_k=-1) ----
         if config.get("save_model", True):

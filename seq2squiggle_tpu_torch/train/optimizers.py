@@ -10,11 +10,18 @@ outside the square root of the bias-corrected second moment; optax clips with
 are plain functions of the step and count from 0 as optax does, so step 0 of
 a warm-up runs at lr 0.
 
+AdaFactor is optax.adafactor at optax's defaults (factored second moments
+for leaves whose two largest dimensions are both >= 128, decay 1 - t^-0.8,
+eps 1e-30, updates clipped to block RMS 1, scaled by the learning rate and by
+the parameter's RMS floored at 1e-3; no momentum, no weight decay: the JAX
+package passes none).
+
 An optimizer's state is a dict {"count", "mu", "nu", "sched_count"} (the keys
-its chain has), and `state_leaves` lists it in optax's tree-flatten order
-(Adam: step count, first moments, second moments, the schedule's count;
-moments in the sorted-key order of the parameter tree), so a train state
-crosses between the two packages. AdaFactor is not ported.
+its chain has; AdaFactor's moments are "v_row", "v_col" and "v"), and
+`state_leaves` lists it in optax's tree-flatten order (Adam: step count,
+first moments, second moments, the schedule's count; moments in the
+sorted-key order of the parameter tree), so a train state crosses between
+the two packages.
 """
 
 from __future__ import annotations
@@ -171,13 +178,68 @@ def rms_direction(g, nu, decay=0.9, eps=1e-8) -> torch.Tensor:
     return g * torch.rsqrt(nu + eps)
 
 
+def factored_dims(shape: Sequence[int], min_dim_size: int = 128):
+    """optax's _factored_dims: (d1, d0), the axes of the second-largest and
+    the largest dimension, where both are >= min_dim_size; else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _adafactor_moment_shape(moment: str, shape: Sequence[int]):
+    """The shape optax.scale_by_factored_rms gives a leaf's v_row, v_col or
+    v: the factored vectors for a factored leaf, the full second moment for
+    any other, and (1,) placeholders for the moments a leaf does not use."""
+    dims = factored_dims(shape)
+    if dims is None:
+        return tuple(shape) if moment == "v" else (1,)
+    if moment == "v":
+        return (1,)
+    drop = dims[1] if moment == "v_row" else dims[0]
+    return tuple(n for i, n in enumerate(shape) if i != drop)
+
+
+def adafactor_decay(count: int, decay_rate: float = 0.8) -> float:
+    """optax's _decay_rate_pow at step `count` (0 for the first update),
+    1 - (count + 1)^-0.8, evaluated in float32 as optax does."""
+    t = torch.tensor(count + 1, dtype=torch.float32)
+    return float(1.0 - t ** -decay_rate)
+
+
+def adafactor_direction(g, v_row, v_col, v, decay: float, eps: float = 1e-30) -> torch.Tensor:
+    """optax.scale_by_factored_rms then clip_by_block_rms(1.0), with the
+    step's `decay` (adafactor_decay); the moments are updated in place."""
+    g2 = g * g + eps
+    dims = factored_dims(g.shape)
+    if dims is not None:
+        d1, d0 = dims
+        v_row.copy_(decay * v_row + (1.0 - decay) * g2.mean(dim=d0))
+        v_col.copy_(decay * v_col + (1.0 - decay) * g2.mean(dim=d1))
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+        u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+    else:
+        v.copy_(decay * v + (1.0 - decay) * g2)
+        u = g * v ** -0.5
+    return u / torch.clamp(u.square().mean().sqrt(), min=1.0)
+
+
+def param_block_rms(p: torch.Tensor, min_scale: float = 1e-3) -> torch.Tensor:
+    """optax's safe_root_mean_squares(p, min_scale): the leaf's RMS, floored."""
+    return torch.clamp(p.detach().square().mean().sqrt(), min=min_scale)
+
+
 class Optimizer:
     """clip -> weight decay -> direction -> -lr(step), as the JAX package
     chains optax transformations. `update` changes parameters and state in
     place (the JAX package donates both to its jitted step)."""
 
     _MOMENTS = {"Adam": ("mu", "nu"), "AdamW": ("mu", "nu"), "RAdam": ("mu", "nu"),
-                "SGD": (), "RMSProp": ("nu",)}
+                "SGD": (), "RMSProp": ("nu",), "AdaFactor": ("v_row", "v_col", "v")}
+    _COUNTED = ("Adam", "AdamW", "RAdam", "AdaFactor")  # a step count leads the state
 
     def __init__(self, name: str, schedule: Schedule, weight_decay: float, clip: float):
         if name not in self._MOMENTS:
@@ -188,9 +250,12 @@ class Optimizer:
         self.clip = clip
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
-        state: Dict = {m: [torch.zeros_like(p, dtype=torch.float32) for p in params]
-                       for m in self._MOMENTS[self.name]}
-        if "mu" in state:
+        def shape(m, p):
+            return _adafactor_moment_shape(m, p.shape) if self.name == "AdaFactor" else p.shape
+
+        state: Dict = {m: [torch.zeros(shape(m, p), dtype=torch.float32, device=p.device)
+                           for p in params] for m in self._MOMENTS[self.name]}
+        if self.name in self._COUNTED:
             state["count"] = 0
         state["sched_count"] = 0
         return state
@@ -201,13 +266,20 @@ class Optimizer:
         name, wd = self.name, self.weight_decay
         if self.clip > 0:
             grads = clip_by_global_norm(grads, self.clip)
-        if wd and name != "AdamW":  # L2 on the gradient, as torch's Adam does
+        if wd and name not in ("AdamW", "AdaFactor"):  # L2 on the gradient, as torch's Adam
             grads = [g + wd * p for g, p in zip(grads, params)]
         lr = self.schedule(state["sched_count"])
         state["sched_count"] += 1
         if "count" in state:
             state["count"] += 1
+        if name == "AdaFactor":
+            decay = adafactor_decay(state["count"] - 1)
         for i, (g, p) in enumerate(zip(grads, params)):
+            if name == "AdaFactor":  # lr, then the parameter's scale, then the sign
+                u = adafactor_direction(g, state["v_row"][i], state["v_col"][i],
+                                        state["v"][i], decay)
+                p.sub_((lr * u) * param_block_rms(p))
+                continue
             if name in ("Adam", "AdamW"):
                 u = adam_direction(g, state["mu"][i], state["nu"][i], state["count"],
                                    eps=1e-7)
@@ -260,12 +332,6 @@ class Optimizer:
 
 
 def build_optimizer(config: dict, total_steps: int) -> Optimizer:
-    name = config["optimizer"]
-    if name == "AdaFactor":
-        raise NotImplementedError(
-            "optimizer AdaFactor is not ported to the GPU yet (ROADMAP.md, module "
-            "queue A11b): optax.adafactor's defaults have no counterpart in "
-            "torch.optim.Adafactor")
-    return Optimizer(name, build_schedule(config, total_steps),
+    return Optimizer(config["optimizer"], build_schedule(config, total_steps),
                      float(config.get("weight_decay", 0.0)),
                      float(config.get("gradient_clip_val") or 0.0))

@@ -141,6 +141,46 @@ def _case_positional_table(fasta, tmp_path):
     return [mod(w, "ops.positional").sinusoid_encoding_table(250, 64) for w in PACKAGES]
 
 
+def _case_preprocess(fasta, tmp_path):
+    import pandas as pd
+    import sys
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_preprocess import make_events
+
+    events = tmp_path / "events.tsv"
+    pd.concat([make_events(24 * 16, seed=i, read_name=f"r{i}") for i in range(2)]).to_csv(
+        events, sep="\t", index=False)
+    out = []
+    for w in PACKAGES:
+        np.random.seed(SEED)  # the shuffle draws from the global generator
+        outdir = tmp_path / f"{w}-npy"
+        mod(w, "train.preprocess").preprocess_run(
+            str(events), str(outdir), batches=True, chunksize=200, partition_by=False,
+            rna=False, config=mod(w, "config").load_config(None))
+        out.append({p.name: np.load(p) for p in sorted(outdir.iterdir())})
+    return out
+
+
+def _case_standardize_events(fasta, tmp_path):
+    import pandas as pd
+
+    rng = np.random.default_rng(SEED)
+    n = rng.integers(2, 90, 40)
+    ends = np.cumsum(n)
+    pd.DataFrame({"read_name": "r", "position": np.arange(40), "model_kmer": "ACGTACGTA",
+                  "start_idx": ends - n, "end_idx": ends, "event_stdv": 1.0,
+                  "samples": [",".join(map(str, rng.normal(0, 1, k).round(4))) for k in n]}
+                 ).to_csv(tmp_path / "events.tsv", sep="\t", index=False)
+    out = []
+    for w in PACKAGES:
+        path = tmp_path / f"{w}-std.tsv"
+        mod(w, "tools.standardize_events").standardize_and_write_chunks(
+            str(tmp_path / "events.tsv"), str(path), 9, 90.0, 11.0, filter_length=70)
+        out.append(path.read_bytes())
+    return out
+
+
 def _equal(a, b):
     if isinstance(a, np.ndarray):
         return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
@@ -153,7 +193,8 @@ def _equal(a, b):
 
 CASES = [_case_get_reads_read_mode, _case_get_reads_reference_mode, _case_iter_batches,
          _case_blow5_zlib, _case_blow5_none, _case_slow5_roundtrip,
-         _case_profiles_and_config, _case_positional_table]
+         _case_profiles_and_config, _case_positional_table, _case_preprocess,
+         _case_standardize_events]
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__[6:] for c in CASES])

@@ -155,13 +155,29 @@ def test_unported_options_raise(tmp_path, override, pattern):
         assert d.max() == 0
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Import the port, run a tiny CPU predict_step (then one through the
-    fused blocks with `pallas_pair: true`), one CPU train step and a CPU
+    fused blocks with `pallas_pair: true`), one CPU train step, a CPU
     `simulate_run` at --wire-format auto (bf16: the ULP tier, through
-    runtime/wire.py and the C++ decoder) in a fresh process (this test
-    process has jax loaded by tests/conftest.py): neither jax nor any module
-    of the JAX package may be loaded after that."""
+    runtime/wire.py and the C++ decoder) and a resume from a legacy
+    train_state.pkl the JAX package wrote (jax arrays and optax states) in a
+    fresh process (this test process has jax loaded by tests/conftest.py):
+    neither jax nor any module of the JAX package may be loaded after that."""
+    import pickle
+
+    import jax
+    import jax.numpy as jnp
+
+    from seq2squiggle_tpu.models.fft_model import init_params as jinit_params
+    from seq2squiggle_tpu.train.optimizers import build_optimizer as jbuild_optimizer
+
+    jcfg = load_config(None)
+    jparams = jinit_params(jcfg, jax.random.key(0))
+    legacy = tmp_path / "train_state.pkl"
+    with open(legacy, "wb") as fh:
+        pickle.dump({"params": jparams, "epoch": 2,
+                     "opt_state": jbuild_optimizer(jcfg, 10).init(jparams)}, fh)
+    assert b"jax._src.array" in legacy.read_bytes()
     code = "\n".join([
         "import sys, numpy as np, torch",
         "import seq2squiggle_tpu_torch",
@@ -211,6 +227,13 @@ def test_port_never_imports_jax():
         "    show_progress=False, device=torch.device('cpu'))",
         "assert st['wire_bits'] == 2 and st['wire_decode'] == {'native': 2, 'numpy': 0}, st",
         "assert len(read_slow5(str(tmp / 'o.blow5'))[1]) == 1",
+        "from seq2squiggle_tpu_torch.models.weights import params_from_jax",
+        "from seq2squiggle_tpu_torch.train.loop import load_train_state",
+        f"old = load_train_state({str(legacy)!r})",
+        "opt = build_optimizer(load_config(None), 10)",
+        "leaves = [v for _, v in tree_leaves(params_from_jax(old['params']))]",
+        "restored = opt.restore_state(opt.init(leaves), old['opt_leaves'])",
+        "assert old['epoch'] == 2 and restored['count'] == 0 and len(leaves) == 84",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',",
         "             'seq2squiggle_tpu'))",
         "assert not bad, bad",

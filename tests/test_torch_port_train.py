@@ -5,6 +5,7 @@ Inputs come from numpy seeds and cross as numpy arrays. Tolerances:
     rtol 2e-3 (XLA's float32 lgamma against torch's, tests/test_train.py:35);
   - schedules over 20 steps and optimizers over 5 steps vs optax: rtol 1e-5
     (the port evaluates schedules in Python floats, optax in float32);
+    AdaFactor also with a (130, 136) leaf, which takes the factored branch;
   - loss_fn at max_signal_len 50, float32, dropout key 9, pallas_train False,
     "core", "block" and True: loss rtol 1e-4, every gradient leaf rtol 2e-3 /
     atol 2e-4 (the JAX package's own bar between its rungs,
@@ -138,13 +139,22 @@ def test_schedule_matches_optax(name):
         assert got(0) == 0.0  # optax counts from 0: the first step runs at lr 0
 
 
-@pytest.mark.parametrize("name,wd", [("Adam", 0.0), ("Adam", 0.01), ("AdamW", 0.01),
-                                     ("SGD", 0.01), ("RMSProp", 0.0), ("RAdam", 0.01)])
-def test_optimizer_matches_optax(name, wd):
+_OPTIMIZER_CASES = [pytest.param(name, wd, None, id=f"{name}-{wd}") for name, wd in [
+    ("Adam", 0.0), ("Adam", 0.01), ("AdamW", 0.01), ("SGD", 0.01), ("RMSProp", 0.0),
+    ("RAdam", 0.01), ("AdaFactor", 0.0), ("AdaFactor", 0.01)]] + [
+    # no leaf of the model is factored (none has two dimensions >= 128): this one is
+    pytest.param("AdaFactor", 0.0, (130, 136), id="AdaFactor-0.0-factored")]
+
+
+@pytest.mark.parametrize("name,wd,factored", _OPTIMIZER_CASES)
+def test_optimizer_matches_optax(name, wd, factored):
     cfg = dict(load_config(None), optimizer=name, weight_decay=wd, lr=1e-2,
                lr_schedule="warmup_cosine", warmup_ratio=0.2, gradient_clip_val=1.0)
     rng = np.random.default_rng(3)
     shapes = {"a": (4, 3), "b": (5,), "c": (2, 2)}
+    if factored:
+        shapes["f"] = factored
+        assert topt.factored_dims(factored) is not None
     p0 = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
     # gradient norms on both sides of the clip value
     grads = [{k: (rng.standard_normal(s) * scale).astype(np.float32)
@@ -177,15 +187,10 @@ def test_optimizer_matches_optax(name, wd):
 
 
 def test_unported_training_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        topt.build_optimizer(dict(load_config(None), optimizer="AdaFactor"), 10)
+    """Only tensor parallelism (ROADMAP A12) is left unported."""
     cfg = tiny_config()
     with pytest.raises(NotImplementedError, match="A12"):
         tloop.train_run(str(tmp_path), None, dict(cfg, tensor_parallel=2), None, device=CPU)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tloop.train_run(str(tmp_path), None, cfg, None, save_valid_plots=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tloop.load_train_state(str(tmp_path / "train_state.pkl"))
 
 
 @pytest.mark.parametrize("mode,dtype,on_cuda,want", [
