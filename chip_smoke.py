@@ -146,7 +146,39 @@ Phases (any failure raises and the script exits non-zero):
      (interleaved); `sweep --sweep-id grid.yaml --count 2` (two trials of one
      epoch of 3 steps + 2 validation steps: 2 rows with finite
      valid_total_loss, block launches exactly 2 x the trials' steps); and
-     `version` naming the card.
+     `version` naming the card;
+ 16. the parallel layer on the one card (no second card exists here): (a)
+     phase 4's run with device=[cuda:0, cuda:0] (two shards of 512 rows a
+     batch) at auto, its records equal one for one to phase 4's, the ULP
+     tier kept to the end with dp_shards 2 and every batch decoded by the C++
+     codec, 8 one-block launches a batch; the same at raw against a
+     one-device raw run; (b) the `train` command as two processes on the
+     card over gloo (torchrun's variables; the backend rule gives gloo to two
+     ranks on one card), one epoch of 4 steps + 2 validation steps at batch
+     512, against the same command in one process: at the default config
+     (bf16, the block rung) and at float32 with `pallas_train: block`, each
+     rank's whole-block launches exact for its slab, rank 1's model path
+     empty, the step-0 losses (from the same parameters) within rtol 1e-5;
+     at f32 every later loss within rtol 1e-5 and every parameter leaf of
+     model.npz within rtol 1e-4 / atol 1e-6; at bf16, where each step's
+     forward rounds the gradient sum's other order (two slabs' sums added)
+     up to bf16 steps, the later losses within 1e-2 (phase 6's bf16 bar) of
+     the one-process run and the leaves' gap printed as the witness, and
+     every loss and leaf at the f32 bars against one process that sums the
+     two slabs' gradients in rank order (_slab_order_steps: the same
+     command with loop.make_train_step and make_valid_step replaced, its
+     block launches exactly twice the one-slab run's; bit-equal entries
+     counted); (c) the attention core at 4
+     heads (D = 32, a tp = 2 rank's heads) against its plain version at
+     phase 5's bars and bit-equal to the 8-head kernel on the same heads,
+     forward and backward, bf16 and f32, with its times at (512, 250, 32)
+     bf16 beside the 8-head kernel's, its plain version's and
+     F.scaled_dot_product_attention's on the 4 heads; then `train --tp 2` at `pallas_train:
+     core` as two processes on the card (4 steps + 2 validation steps), each
+     rank's core launches exact, every logged loss within 1e-2 relative of
+     the one-process run's (bf16), and its
+     train_state.npz holding whole leaves in optax's order (the count and
+     shapes of the one-process file of (b)).
 
 The line before the last is a JSON object with each kernel's route, source,
 launches on its main path (for the profiling kernels: in their timing
@@ -161,6 +193,7 @@ from __future__ import annotations
 
 import json
 import logging
+import socket
 import math
 import os
 import pathlib
@@ -170,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -244,13 +278,13 @@ def fused_block_work(B: int, L: int, dtype: torch.dtype):
     return n_bytes, flops
 
 
-def core_work(B: int, L: int, dtype: torch.dtype, backward: bool):
-    """Bytes and FLOPs of one attention-core call: 4 tensors and two L x L x 8
-    products per head forward; 7 tensors and six products backward (scores
-    and num recomputed, g_a, gq, gk, gv)."""
+def core_work(B: int, L: int, dtype: torch.dtype, backward: bool, D: int = 64):
+    """Bytes and FLOPs of one attention-core call on D / 8 heads: 4 tensors
+    and two L x L x 8 products per head forward; 7 tensors and six products
+    backward (scores and num recomputed, g_a, gq, gk, gv)."""
     size = torch.finfo(dtype).bits // 8
     tensors, products = (7, 6) if backward else (4, 2)
-    return tensors * B * L * 64 * size, products * 2 * B * L * L * 64
+    return tensors * B * L * D * size, products * 2 * B * L * L * D
 
 
 def block_train_work(B: int, L: int, dtype: torch.dtype, backward: bool):
@@ -1570,6 +1604,362 @@ def phase_train_rest(dev, smi, pngs, warnings):
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
+PARALLEL_STEPS = 4  # train steps of each phase 16 run
+
+
+def _rank_env(world: int) -> list:
+    """torchrun's variables for `world` ranks of this host, on a free port."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    return [dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(r),
+                 WORLD_SIZE=str(world), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world))
+            for r in range(world)]
+
+
+def rank_train(out: str, args) -> int:
+    """One rank of a phase 16 `train` (`chip_smoke.py --rank-train OUT ARGS`):
+    the command, with the launch counts reset just before and read just
+    after, written to OUT with the rank and the group's backend."""
+    import torch.distributed as dist
+
+    from seq2squiggle_tpu_torch import cli
+    from seq2squiggle_tpu_torch.parallel.distributed import world
+
+    _reset_launch_counts()
+    cli.main(list(args), standalone_mode=False)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    n, rank = world()
+    pathlib.Path(out).write_text(json.dumps({"rank": rank, "world": n,
+                                             "backend": dist.get_backend(),
+                                             "launches": counts}))
+    dist.destroy_process_group()
+    return 0
+
+
+def _two_ranks(tmp: pathlib.Path, args_by_rank, timeout: int = 300) -> list:
+    """Run `train` as two processes on the card; their rank_train records."""
+    procs = []
+    for r, env in enumerate(_rank_env(2)):
+        out = tmp / f"rank{r}.json"
+        procs.append((out, subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-train", str(out),
+             *args_by_rank[r]], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    records = []
+    try:
+        for out, proc in procs:
+            text = proc.communicate(timeout=timeout)[0]
+            check(proc.returncode == 0, f"a rank failed ({proc.returncode}):\n{text[-4000:]}")
+            records.append(json.loads(out.read_text()))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return records
+
+
+def _slab_order_steps(n_slabs: int):
+    """Stand-ins for train/loop.py's make_train_step and make_valid_step in a
+    one-process run that takes each step as `n_slabs` dp ranks take it: the
+    batch cut into their slabs, each slab's loss over the whole batch's valid
+    rows with its rows of the global dropout draw (a layout made without a
+    process group), and the slabs' gradients and loss terms summed in f32 in
+    rank order, as gloo sums them over two ranks. Against a dp run this
+    leaves one difference out: the order of the gradient sum."""
+    from seq2squiggle_tpu_torch.parallel.mesh import make_mesh
+    from seq2squiggle_tpu_torch.train import loop
+
+    slabs = [make_mesh(n_slabs, 1, world=n_slabs, rank=r) for r in range(n_slabs)]
+
+    def slab_terms(params, batch, mask, config, key):
+        n_valid = mask.sum()
+        for mesh in slabs:
+            rows = mesh.local_rows(mask.shape[0])
+            slab = {k: v[rows] for k, v in batch.items()}
+            prediction, conc, rate, noise = loop.model_forward_train(params, slab, config,
+                                                                     key, mesh)
+            yield loop.total_loss(prediction, slab["targets"], conc, rate,
+                                  slab["chunks_lengths"], noise, slab["stdevs"], mask[rows],
+                                  n_valid)[1]
+
+    def summed(a, b):
+        return b if a is None else {k: a[k] + b[k] for k in b}
+
+    def make_train_step(config, optimizer, mesh=None):
+        def step(params, opt_state, batch, mask, key):
+            paths, leaves = zip(*loop.tree_leaves(params))
+            grads = metrics = None
+            for terms in slab_terms(params, batch, mask, config, key):
+                g = torch.autograd.grad(terms["total_loss"], leaves)
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                metrics = summed(metrics, {k: v.detach() for k, v in terms.items()})
+            squares = loop.leaf_square_sums(grads)
+            metrics["grad_norm"] = torch.sqrt(sum(squares.unbind()))
+            metrics.update({f"grad_norm/{'/'.join(p)}": n
+                            for p, n in zip(paths, squares.sqrt().unbind())})
+            optimizer.update(grads, opt_state, leaves)
+            return metrics
+
+        return step
+
+    def make_valid_step(config, mesh=None):
+        def step(params, batch, mask):
+            metrics = None
+            with torch.no_grad():
+                for terms in slab_terms(params, batch, mask, config, None):
+                    metrics = summed(metrics, terms)
+            return metrics
+
+        return step
+
+    return make_train_step, make_valid_step
+
+
+def _losses(path: pathlib.Path) -> dict:
+    return {(r["step"], k): v for line in open(path) for r in [json.loads(line)]
+            for k, v in r.items() if k.endswith("_loss")}
+
+
+def phase_parallel(dev, main_recs):
+    """Phase 16: the parallel layer on the one card. Returns the 4-head
+    attention core's errors, times and launches."""
+    import torch.nn.functional as F
+    import yaml
+
+    from seq2squiggle_tpu_torch import cli
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.models.weights import load_checkpoint
+    from seq2squiggle_tpu_torch.ops import attn_core as ac
+    from seq2squiggle_tpu_torch.train import loop
+    from seq2squiggle_tpu_torch.train.loop import load_train_state
+
+    t_phase = time.perf_counter()
+    # -- (a) predict: two shards of each batch on the one card
+    two = [dev, dev]
+    stats, launches, _, recs = _predict_run(dev, "out.blow5", 100, device=two)
+    n_batches = math.ceil(stats["chunks"] / BATCH)
+    check(stats["dp_shards"] == 2 and stats["wire_bits"] == 2
+          and stats["wire_decode"] == {"native": n_batches, "numpy": 0},
+          f"two shards at auto: {stats}")
+    check(launches == 8 * n_batches, f"two shards: {launches} launches for {n_batches} batches")
+    _tier_runs_match("two shards at auto against phase 4", recs, main_recs, exact=True)
+    raw1, _, _, raw1_recs = _predict_run(dev, "raw.blow5", 100, wire_format="raw")
+    raw2, raw2_launches, _, raw2_recs = _predict_run(dev, "raw.blow5", 100, wire_format="raw",
+                                                     device=two)
+    check(raw2["dp_shards"] == 2 and raw2_launches == 8 * n_batches, f"two shards raw: {raw2}")
+    _tier_runs_match("two shards at raw against one device", raw2_recs, raw1_recs, exact=True)
+    log(f"predict over two shards on the card: auto {len(recs)} records equal to phase 4's "
+        f"({stats['ksamples_per_s']:.1f} kSamples/s, dp_shards 2, the ULP tier throughout, "
+        f"{n_batches} batches by the C++ codec), raw equal to one device's "
+        f"({raw2['ksamples_per_s']:.1f} against {raw1['ksamples_per_s']:.1f} kSamples/s); "
+        f"fused_fft_block launches {launches} and {raw2_launches} (8 a batch)")
+
+    # -- (c, first) the attention core at 4 heads: a tp = 2 rank's heads
+    gen = torch.Generator().manual_seed(SEED)
+    core4 = {}
+    for dtype, shapes in ((torch.bfloat16, ((TRAIN_BATCH, 250), (3, 37))),
+                          (torch.float32, ((64, 250), (3, 37)))):
+        for B, L in shapes:
+            q, k, v, g = (torch.randn(B, L, 64, generator=gen).to(dev, dtype) for _ in range(4))
+            out8 = ac.packed_attention_core_forward(q, k, v, 8)
+            grads8 = ac.packed_attention_core_backward(q, k, v, g, 8)
+            f_err = b_err = 0.0
+            for first in (0, 4):
+                cols = slice(8 * first, 8 * first + 32)
+                part = [t[..., cols].contiguous() for t in (q, k, v, g)]
+                out4 = ac.packed_attention_core_forward(*part[:3], 4)
+                grads4 = ac.packed_attention_core_backward(*part, 4)
+                torch.cuda.synchronize()
+                check(torch.equal(out4, out8[..., cols])
+                      and all(torch.equal(a, b[..., cols]) for a, b in zip(grads4, grads8)),
+                      f"core at 4 heads {dtype} {B}x{L}: not bit-equal to the 8-head kernel")
+                ref = ac.packed_attention_core_reference(*part[:3], 4)
+                refs = ac.packed_attention_core_backward_reference(*part, 4)
+                f_err = max(f_err, (out4.float() - ref.float()).abs().max().item())
+                if dtype == torch.float32:
+                    torch.testing.assert_close(out4, ref, rtol=1e-5, atol=1e-5)
+                    for a, b in zip(grads4, refs):
+                        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+                else:
+                    tol = 4 * 2.0 ** -8 * ref.float().abs().max().item()
+                    check(f_err <= tol, f"core at 4 heads bf16 {B}x{L}: forward err {f_err}")
+                for a, b in zip(grads4, refs):
+                    err = (a.float() - b.float()).abs().max().item()
+                    check(dtype == torch.float32 or err <= 2 * bf16_tol(b),
+                          f"core at 4 heads bf16 {B}x{L}: gradient err {err}")
+                    b_err = max(b_err, err)
+            msg = (f"core at 4 heads vs plain {str(dtype)[6:]:8s} B={B:4d} L={L:3d}: forward "
+                   f"max|err| {f_err:.3g}, gradients {b_err:.3g}, both halves bit-equal to "
+                   "the 8-head kernel")
+            if dtype == torch.bfloat16 and B == TRAIN_BATCH:
+                q4, k4, v4, g4 = (t[..., :32].contiguous() for t in (q, k, v, g))
+                core4 = {"fwd_err": f_err, "bwd_err": b_err}
+                for _ in range(2):  # 8 heads and 4 in turns
+                    for name, fn in (
+                            ("fwd8", lambda: ac.packed_attention_core_forward(q, k, v, 8)),
+                            ("fwd", lambda: ac.packed_attention_core_forward(q4, k4, v4, 4)),
+                            ("bwd8", lambda: ac.packed_attention_core_backward(q, k, v, g, 8)),
+                            ("bwd", lambda: ac.packed_attention_core_backward(q4, k4, v4, g4,
+                                                                              4))):
+                        core4.setdefault(name, []).append(median_ms(fn))
+                core4 = {k: (min(t) if isinstance(t, list) else t) for k, t in core4.items()}
+                core4["fwd_plain"] = median_ms(
+                    lambda: ac.packed_attention_core_reference(q4, k4, v4, 4))
+                core4["bwd_plain"] = median_ms(
+                    lambda: ac.packed_attention_core_backward_reference(q4, k4, v4, g4, 4))
+                def heads4(t):
+                    return t.view(B, L, 4, 8).transpose(1, 2)
+
+                qh, kh, vh = (heads4(t).detach().requires_grad_() for t in (q4, k4, v4))
+                sdpa = F.scaled_dot_product_attention(qh, kh, vh)
+                core4["fwd_library"] = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                core4["bwd_library"] = median_ms(lambda: torch.autograd.grad(
+                    sdpa, (qh, kh, vh), heads4(g4), retain_graph=True))
+                for d in ("fwd", "bwd"):
+                    core4[f"{d}_bound"] = bound(*core_work(TRAIN_BATCH, 250, dtype, d == "bwd",
+                                                           D=32), dtype)
+                msg += "; ms " + ", ".join(f"{k} {v:.3f}" for k, v in core4.items()
+                                           if not isinstance(v, tuple) and "err" not in k)
+            log(msg)
+
+    # -- (b) `train` over two processes (dp = 2) against one process
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        cfg = dict(load_config(None), max_epochs=1, train_batch_size=TRAIN_BATCH)
+        rng = np.random.default_rng(SEED)
+        _write_chunk_dir(tmp / "train", rng, 4, PARALLEL_STEPS * TRAIN_BATCH // 4, cfg)
+        _write_chunk_dir(tmp / "valid", rng, 1, VALID_STEPS * TRAIN_BATCH, cfg)
+        base = {"max_epochs": 1, "train_batch_size": TRAIN_BATCH}
+        for name, over in (("bf16", {}), ("f32", {"compute_dtype": "float32",
+                                                  "pallas_train": "block"}),
+                           ("tp", {"pallas_train": "core"})):
+            (tmp / f"{name}.yaml").write_text(yaml.safe_dump(dict(base, **over)))
+
+        def args(yaml_name, model, *extra):
+            return ["train", str(tmp / "train"), str(tmp / "valid"), "-y", str(tmp / yaml_name),
+                    "-m", str(model), "-s", str(SEED), "-v", "warning",
+                    "--save_valid_plots", "false", *extra]
+
+        steps = (2 * (PARALLEL_STEPS + VALID_STEPS), 2 * PARALLEL_STEPS)
+        one_state = None
+        for name in ("bf16", "f32"):
+            t0 = time.perf_counter()
+            ranks = _two_ranks(tmp, [args(f"{name}.yaml", tmp / f"{name}{r}" / "model.npz")
+                                     for r in range(2)])
+            dp_s = time.perf_counter() - t0
+            for rec in ranks:
+                check(rec["world"] == 2 and rec["backend"] == "gloo"
+                      and tuple(rec["launches"]) == (*steps, 0, 0),
+                      f"dp = 2 {name}: rank {rec['rank']} ran {rec}, want block launches {steps}")
+            check(not any((tmp / f"{name}1").iterdir()), f"dp = 2 {name}: rank 1 wrote files")
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(args(f"{name}.yaml", tmp / f"one_{name}" / "model.npz"),
+                     standalone_mode=False)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            check(_launch_counts() == (*steps, 0, 0), f"one process {name}: {_launch_counts()}")
+            got = _losses(tmp / f"{name}0" / "metrics.jsonl")
+            p2 = fft_model.tree_leaves(load_checkpoint(str(tmp / f"{name}0" / "model.npz"))[0])
+
+            def against(ref: str):
+                """(step-0 losses' worst relative error, later ones', entries
+                outside rtol 1e-4 / atol 1e-6, leaves' max|Δ|, entries not
+                bit-equal) of the dp run against the one-process run `ref`."""
+                want = _losses(tmp / ref / "metrics.jsonl")
+                check(set(got) == set(want) and len(got) >= 8, f"logged losses {sorted(got)}")
+                err = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+                p1 = fft_model.tree_leaves(load_checkpoint(str(tmp / ref / "model.npz"))[0])
+                pairs = [(a, b) for (_, a), (_, b) in zip(p2, p1)]
+                return (max(e for (step, _), e in err.items() if step == 0),
+                        max(e for (step, _), e in err.items() if step > 0),
+                        sum(int(((a - b).abs() > 1e-6 + 1e-4 * b.abs()).sum()) for a, b in pairs),
+                        max((a - b).abs().max().item() for a, b in pairs),
+                        sum(int((a != b).sum()) for a, b in pairs))
+
+            first, later, outside_bar, worst, unequal = against(f"one_{name}")
+            # the step-0 loss comes from the same parameters: the step bar
+            # (the JAX package's tests/test_parallel.py: loss rtol 1e-5, leaves
+            # rtol 1e-4 / atol 1e-6).
+            check(first <= 1e-5, f"dp = 2 {name}: step-0 losses {got} against one process")
+            if name == "f32":
+                check(later <= 1e-5, f"dp = 2 f32: later losses within {later} of one process's")
+                check(outside_bar == 0, f"dp = 2 f32: {outside_bar} parameters outside "
+                      f"rtol 1e-4 / atol 1e-6 of one process's (max|Δ| {worst})")
+                one_state = load_train_state(str(tmp / "one_f32" / "train_state.npz"))
+                held = ""
+            else:
+                # After step 0 the dp run sums each gradient as two slabs' sums,
+                # and the bf16 forwards round that other order up to bf16 steps.
+                # One process summing the same two slabs in the same order is
+                # the reference at the step bars; the plain one-process run
+                # is printed beside it as the witness of what the order moves.
+                check(later <= 1e-2, f"dp = 2 bf16: later losses within {later} of one "
+                      "process's")
+                slab_steps = _slab_order_steps(2)
+                _reset_launch_counts()
+                with mock.patch.multiple(loop, make_train_step=slab_steps[0],
+                                         make_valid_step=slab_steps[1]):
+                    cli.main(args(f"{name}.yaml", tmp / "slabs_bf16" / "model.npz"),
+                             standalone_mode=False)
+                torch.cuda.synchronize()
+                check(_launch_counts() == (*(2 * s for s in steps), 0, 0),
+                      f"one process over two slabs: {_launch_counts()}")
+                s_first, s_later, s_outside, s_worst, s_unequal = against("slabs_bf16")
+                check(max(s_first, s_later) <= 1e-5, f"dp = 2 bf16: losses within "
+                      f"{max(s_first, s_later)} of one process summing the two slabs")
+                check(s_outside == 0, f"dp = 2 bf16: {s_outside} parameters outside rtol "
+                      f"1e-4 / atol 1e-6 of one process summing the two slabs (max|Δ| "
+                      f"{s_worst})")
+                held = (f"; against one process summing the two slabs' gradients in rank "
+                        f"order every loss within {max(s_first, s_later):.2g} relative, "
+                        f"leaves max|Δ| {s_worst:.3g}, {s_outside} entries outside the bars, "
+                        f"{s_unequal} not bit-equal")
+            log(f"train over two processes on the card (dp = 2, gloo, {name}, "
+                f"{'default config' if name == 'bf16' else 'pallas_train: block'}, "
+                f"{PARALLEL_STEPS} + {VALID_STEPS} steps of {TRAIN_BATCH}): block launches "
+                f"{steps} on each rank, rank 1 wrote nothing; against one process the step-0 "
+                f"losses within {first:.2g} relative, later ones within {later:.2g}; of "
+                f"{len(p2)} leaves max|Δ| {worst:.3g}, {outside_bar} entries outside rtol 1e-4 "
+                f"/ atol 1e-6, {unequal} not bit-equal{held}; wall {dp_s:.1f} s (two "
+                f"processes, start-up included) against {one_s:.1f} s in this one")
+
+        # -- (c) `train --tp 2` at the core rung: each rank its 4 heads
+        t0 = time.perf_counter()
+        ranks = _two_ranks(tmp, [args("tp.yaml", tmp / f"tp{r}" / "model.npz", "--tp", "2")
+                                 for r in range(2)])
+        tp_s = time.perf_counter() - t0
+        for rec in ranks:
+            check(rec["world"] == 2 and rec["backend"] == "gloo"
+                  and tuple(rec["launches"]) == (0, 0, *steps),
+                  f"tp = 2: rank {rec['rank']} ran {rec}, want core launches {steps}")
+        check(not any((tmp / "tp1").iterdir()), "tp = 2: rank 1 wrote files")
+        losses = _losses(tmp / "tp0" / "metrics.jsonl")
+        cli.main(args("tp.yaml", tmp / "one_tp" / "model.npz"), standalone_mode=False)
+        want = _losses(tmp / "one_tp" / "metrics.jsonl")
+        check(set(losses) == set(want) and all(math.isfinite(v) for v in losses.values()),
+              f"tp = 2: logged losses {losses}")
+        tp_err = max(abs(losses[k] - want[k]) / abs(want[k]) for k in want)
+        # the row-parallel products sum their two halves in another order, and
+        # bf16 rounds that: phase 6's bf16 bar
+        check(tp_err <= 1e-2, f"tp = 2: losses {losses} against one process's {want}")
+        state = load_train_state(str(tmp / "tp0" / "train_state.npz"))
+        check([np.shape(x) for x in state["opt_leaves"]]
+              == [np.shape(x) for x in one_state["opt_leaves"]],
+              "tp = 2: train_state.npz does not hold the whole leaves")
+        core4["launches_fwd"], core4["launches_bwd"] = ranks[0]["launches"][2:]
+        log(f"train --tp 2 at pallas_train: core over two processes on the card: core "
+            f"launches {steps} on each rank (4 heads each), rank 1 wrote nothing, losses "
+            f"within {tp_err:.2g} relative of one process's, "
+            f"{len(state['opt_leaves'])} whole optimizer leaves; wall {tp_s:.1f} s")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return core4
+
+
 def main() -> int:
     if not (ROOT / "seq2squiggle_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1578,6 +1968,9 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false",
               file=sys.stderr)
         return 3
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-train":  # a phase 16 rank
+        sys.path.insert(0, str(ROOT))
+        return rank_train(sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 3 and sys.argv[1] == "--digests":
         # the port as it is in another tree (its kernels build there), this script's inputs
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
@@ -1616,6 +2009,7 @@ def main() -> int:
     phase_other_modes(dev)
     phase_wire(host_params, dev, main_stats, recs, smi)
     phase_train_rest(dev, smi, pngs, warnings)
+    core4 = phase_parallel(dev, recs)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
@@ -1625,12 +2019,22 @@ def main() -> int:
 
     def entry(name, source, replaces, launches, got, direction, work):
         bound_ms, bound_by = bound(*work(TRAIN_BATCH, 250, bf16, direction == "bwd"), bf16)
+        extra = {}
+        if name.startswith("packed_attention_core"):  # phase 16: a tp = 2 rank's 4 heads
+            extra = {"four_heads_tp2": {
+                "ms": core4[direction], "eight_heads_ms_same_rounds": core4[f"{direction}8"],
+                "plain_ms": core4[f"{direction}_plain"], "max_abs_err": core4[f"{direction}_err"],
+                "library_ms": core4[f"{direction}_library"],
+                "bound_ms": core4[f"{direction}_bound"][0],
+                "bound_by": core4[f"{direction}_bound"][1],
+                "launches_per_rank": core4[f"launches_{direction}"],
+                "shape": f"bf16 {TRAIN_BATCH}x250x32"}}
         return {"name": name, "route": "cuda",
                 "source": f"seq2squiggle_tpu_torch/csrc/{source}",
                 "replaces": f"seq2squiggle_tpu/ops/pallas/{replaces}", "launches": launches,
                 "max_abs_err": got[f"{direction}_err"], "ms": got[direction],
                 "plain_ms": got[f"{direction}_plain"], "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": got.get(f"{direction}_library")}
+                "bound_by": bound_by, "library_ms": got.get(f"{direction}_library"), **extra}
 
     pair_bound = bound(2 * BATCH * 250 * 64 * 2 + 2 * fused_block_work(0, 250, bf16)[0],
                        2 * fused_block_work(BATCH, 250, bf16)[1], bf16)

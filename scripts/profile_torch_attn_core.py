@@ -68,7 +68,7 @@ def build_variants() -> dict:
 
 
 def _call(fn, tensors, B, L):
-    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), B, L, 0,
+    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in tensors), B, L, N_HEAD, 0,
              1.0 / math.sqrt(64 // N_HEAD),
              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:

@@ -86,7 +86,7 @@ def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False
         profile="dna-r10-prom", dwell_mean=None, dwell_std=0.0, noise_std=2.0,
         noise_sampling=True, duration_sampling=True, distr="expon",
         predict_batch_size=BATCH, export_every_n_samples=1_000_000, seed=SEED,
-        show_progress=False, wire_format=wire, device=torch.device("cuda"),
+        show_progress=False, wire_format=wire, device=torch.device("cuda", 0),
     )
 
 

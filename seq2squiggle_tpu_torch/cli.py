@@ -4,12 +4,18 @@ predict|preprocess|train|sweep|version ...`.
 The commands, flags and defaults are the JAX package's (`_SharedParams` and
 `advanced_options` are the port's copies of seq2squiggle_tpu/cli.py:24 and
 :67), plus the hidden `--device` (default cuda) on the commands that run the
-model: `predict`, `train` and `sweep`.
+model: `predict`, `train` and `sweep`. `--device cuda` means every visible
+card for `predict` (its batches split over them) and the current card for
+`train` and `sweep`; in a multi-process run (torchrun's variables or the JAX
+package's JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID;
+parallel/distributed.py) it is each rank's own card, and `predict` writes one
+shard of the reads a rank, `train` a ('dp', 'tp') mesh over the ranks.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import pathlib
 
 import click
@@ -62,8 +68,11 @@ def main():
     POD5; --wire-format auto starts at the ULP tier under bf16 compute and
     steps down on overflow, as in the JAX package; --num-shards and
     --trace-dir work. `preprocess` turns an events.tsv into training chunks,
-    `train` and `sweep` train on them. Several devices in one process are not
-    ported: one device per process (shard over processes with --num-shards).
+    `train` and `sweep` train on them. Several devices work as in the JAX
+    package: `predict` splits each batch over every visible card, and several
+    processes (torchrun, or JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
+    JAX_PROCESS_ID) shard `predict`'s reads (one <out>.shard<i> file a rank)
+    and train data- and tensor-parallel (`train --tp`).
     """
 
 
@@ -185,8 +194,9 @@ def advanced_options(f):
 @click.option("--show-advanced-options", is_flag=True, default=False,
               help="Show advanced options for signal prediction.")
 @click.option("--device", default="cuda", show_default=True, hidden=True,
-              help="Torch device to run on (cuda, cuda:N or cpu). A cuda "
-              "device that is not there is an error.")
+              help="Torch device to run on: cuda (every visible card; a "
+              "rank's own card in a multi-process run), cuda:N or cpu. A "
+              "cuda device that is not there is an error.")
 @advanced_options
 @click.pass_context
 def predict(ctx, fasta, read_input, num_reads, read_length, coverage, out,
@@ -217,11 +227,20 @@ def predict(ctx, fasta, read_input, num_reads, read_length, coverage, out,
     setup_logging(verbosity)
     logger.info("seq2squiggle-tpu (PyTorch port) version %s", __version__)
 
-    from .device import resolve_device
+    from .device import resolve_devices
+    from .parallel.distributed import maybe_init_distributed, world
     from .runtime.simulate import simulate_run
 
-    torch_device = resolve_device(device)
-    logger.info(f"Device: {torch_device}")
+    # Multi-process: each rank simulates its round-robin shard of the reads
+    # (keys from global read indices, so the shard files' union is the
+    # single run's) and writes its own file, as the JAX package does.
+    if maybe_init_distributed(device) and num_shards == 1:
+        num_shards, shard_index = world()
+        root, ext = os.path.splitext(str(out))
+        out = f"{root}.shard{shard_index}{ext}"
+        logger.info(f"Multi-process predict: rank {shard_index}/{num_shards} writing {out}")
+    devices = resolve_devices(device)
+    logger.info(f"Devices: {', '.join(map(str, devices))}")
     cfg = load_config(config)
     resolved_seed = set_seeds(seed)
     simulate_run(
@@ -260,7 +279,7 @@ def predict(ctx, fasta, read_input, num_reads, read_length, coverage, out,
         trace_dir=trace_dir,
         wire_format=wire_format,
         slow5_press=slow5_press,
-        device=torch_device,
+        device=devices,
     )
     logger.info("Prediction done.")
 
@@ -316,11 +335,14 @@ def preprocess(events_path, outdir, no_batches, chunksize, partition_by, rna,
               help="Resume from the train_state.npz next to the model path "
               "(restores optimizer state and epoch).")
 @click.option("--tp", "tensor_parallel", type=int, default=None,
-              help="Tensor-parallel degree (config key: tensor_parallel). "
-              "Not ported yet: anything above 1 is an error.")
+              help="Tensor-parallel degree over the ('dp','tp') mesh of the "
+              "run's processes (shards the FFN hidden dim and the attention "
+              "heads; processes/tp become data-parallel). Default 1 (config "
+              "key: tensor_parallel).")
 @click.option("--device", default="cuda", show_default=True, hidden=True,
-              help="Torch device to run on (cuda, cuda:N or cpu). A cuda "
-              "device that is not there is an error.")
+              help="Torch device to run on: cuda (the current card; a rank's "
+              "own card in a multi-process run), cuda:N or cpu. A cuda device "
+              "that is not there is an error.")
 def train(train_dir, valid_dir, save_valid_plots, resume, tensor_parallel, device,
           seed, model, config, verbosity):
     """Train the model with preprocessed .npy chunks.
@@ -329,14 +351,18 @@ def train(train_dir, valid_dir, save_valid_plots, resume, tensor_parallel, devic
     config's `pallas_train` picks the decoder's rung: `block` or `true`
     (hand-written whole-block kernels; what the default `auto` takes in
     bfloat16 on a GPU), `core` (hand-written attention-core kernels) or
-    `false` (plain blocks).
+    `false` (plain blocks). Several processes (torchrun, or the JAX
+    package's JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID)
+    train over a ('dp', 'tp') mesh, tp from --tp; rank 0 writes the files.
     """
     setup_logging(verbosity)
     logger.info("seq2squiggle-tpu (PyTorch port) version %s", __version__)
 
     from .device import resolve_device
+    from .parallel.distributed import maybe_init_distributed
     from .train.loop import train_run
 
+    maybe_init_distributed(device)
     torch_device = resolve_device(device)
     logger.info(f"Device: {torch_device}")
     resolved_seed = set_seeds(seed)

@@ -2,7 +2,12 @@
 // of the Pallas kernel pair behind
 // seq2squiggle_tpu/ops/pallas/attn_core.py::packed_attention_core
 // (_core_fwd_call, _core_bwd_call). q, k, v, out and the gradients are all
-// (B, L, 64) with the 8 heads packed along the last axis (d_k = 8).
+// (B, L, 8·nh) with nh heads packed along the last axis (d_k = 8): the model's
+// 8 heads (D = 64), or the nh = 8 / tp heads a tensor-parallel rank owns
+// (nh = 1, 2 or 4; D = 32 at tp = 2). Each head's work is its own (its slices,
+// its shift from its own norms, its sums), so nh changes only the row stride
+// and the grid: the 4-head output is bit-equal to the 8-head kernel's on the
+// same heads.
 //
 //   forward   ctx = softmax(q kᵀ/√d_k) v per head, with the Cauchy–Schwarz
 //             shift ‖q_t‖·max_s‖k_s‖/√d_k; e = exp(..) rounded to the compute
@@ -17,7 +22,8 @@
 // Bound: operations, not bytes. A call at B = 512, L = 250 moves 4 (forward)
 // or 7 (backward) tensors of 16 MB in bf16, microseconds at 3.35 TB/s,
 // against 2.6e8 (query, key) pairs, each with one exp forward and three
-// backward. Both types: one thread block per (batch row, head); the head's
+// backward. Both types: one thread block per (batch row, head), a grid of
+// B·nh; the head's
 // q, k, v slices (L x 8) live in shared memory, so device memory is read
 // once; scores are recomputed and never stored.
 //
@@ -80,36 +86,38 @@ using namespace s2s;
 
 constexpr int THREADS = 256;
 
+// A head's slice (L rows of 8, `ld` = 8·nh apart in device memory) into
+// shared memory.
 template <typename T>
-__device__ __forceinline__ void load_head(T* dst, const T* src, int L, int tid) {
-  for (int t = tid; t < L; t += THREADS) copy8(dst + t * DK, src + (size_t)t * D);
+__device__ __forceinline__ void load_head(T* dst, const T* src, int L, int ld, int tid) {
+  for (int t = tid; t < L; t += THREADS) copy8(dst + t * DK, src + (size_t)t * ld);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 attn_core_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, const int L,
-                     const float inv_temp) {
+                     const int nh, const float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + (size_t)L * DK;
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const size_t base = (size_t)b * L * D + h * DK;
-  load_head(sK, k + base, L, tid);
-  load_head(sV, v + base, L, tid);
+  const int tid = threadIdx.x, ld = nh * DK;
+  const int b = blockIdx.x / nh, h = blockIdx.x - b * nh;
+  const size_t base = (size_t)b * L * ld + h * DK;
+  load_head(sK, k + base, L, ld, tid);
+  load_head(sV, v + base, L, ld, tid);
   __syncthreads();
   const float knorm = warp_max_knorm<T, DK>(sK, L, tid & 31);
 
   for (int t = tid; t < L; t += THREADS) {
     float qv[DK], num[DK], den, ctx[DK];
-    load8(q + base + (size_t)t * D, qv);
+    load8(q + base + (size_t)t * ld, qv);
     attend_query<T, DK>(qv, sK, sV, L, inv_temp, false, cs_shift(qv, knorm, inv_temp),
                         num, den);
 #pragma unroll
     for (int c = 0; c < DK; ++c) ctx[c] = __fdiv_rn(num[c], den);
-    store8(out + base + (size_t)t * D, ctx);
+    store8(out + base + (size_t)t * ld, ctx);
   }
 }
 
@@ -120,7 +128,7 @@ __global__ void __launch_bounds__(THREADS)
 attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ g,
                      TO* __restrict__ gq, TO* __restrict__ gk, TO* __restrict__ gv,
-                     const int L, const float inv_temp) {
+                     const int L, const int nh, const float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + (size_t)L * DK;
@@ -129,12 +137,12 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sShift = reinterpret_cast<float*>(sGh + (size_t)L * DK);
   float* sR = sShift + L;                             // softmax-jacobian row dot
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const size_t base = (size_t)b * L * D + h * DK;
-  load_head(sQ, q + base, L, tid);
-  load_head(sK, k + base, L, tid);
-  load_head(sV, v + base, L, tid);
+  const int tid = threadIdx.x, ld = nh * DK;
+  const int b = blockIdx.x / nh, h = blockIdx.x - b * nh;
+  const size_t base = (size_t)b * L * ld + h * DK;
+  load_head(sQ, q + base, L, ld, tid);
+  load_head(sK, k + base, L, ld, tid);
+  load_head(sV, v + base, L, ld, tid);
   __syncthreads();
   const float knorm = warp_max_knorm<T, DK>(sK, L, tid & 31);
 
@@ -144,7 +152,7 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load8(sQ + t * DK, qv);
     const float shift = cs_shift(qv, knorm, inv_temp);
     attend_query<T, DK>(qv, sK, sV, L, inv_temp, false, shift, num, den);
-    load8(g + base + (size_t)t * D, gh);
+    load8(g + base + (size_t)t * ld, gh);
     float r = 0.f;
 #pragma unroll
     for (int c = 0; c < DK; ++c) {
@@ -167,7 +175,7 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < DK; ++c) acc[c] = fmaf(ds, kv[c], acc[c]);
     }
-    store8(gq + base + (size_t)t * D, acc);
+    store8(gq + base + (size_t)t * ld, acc);
   }
   __syncthreads();
 
@@ -191,8 +199,8 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         av[c] = fmaf(e, gh[c], av[c]);
       }
     }
-    store8(gk + base + (size_t)s * D, ak);
-    store8(gv + base + (size_t)s * D, av);
+    store8(gk + base + (size_t)s * ld, ak);
+    store8(gv + base + (size_t)s * ld, av);
   }
 }
 
@@ -220,12 +228,12 @@ __device__ __forceinline__ uint32_t ds_pair(uint32_t e, float ga0, float ga1, fl
                __fmul_rn(hi_f(e), __fmul_rn(__fsub_rn(ga1, r1), inv_temp)));
 }
 
-// A head's slice (L rows of 8, D apart in device memory) into shared memory,
-// rows L..Lp-1 zero.
+// A head's slice (L rows of 8, `ld` = 8·nh apart in device memory) into
+// shared memory, rows L..Lp-1 zero.
 __device__ __forceinline__ void load_head_padded(bf16* dst, const bf16* src, int L, int Lp,
-                                                 int tid) {
+                                                 int ld, int tid) {
   for (int t = tid; t < Lp; t += MMA_THREADS) {
-    if (t < L) copy8(dst + t * DK, src + (size_t)t * D);
+    if (t < L) copy8(dst + t * DK, src + (size_t)t * ld);
     else *reinterpret_cast<uint4*>(dst + t * DK) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
@@ -238,31 +246,31 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 
 // Rows g and g + 8 of an accumulator fragment to rows row0 + g, row0 + g + 8
-// of a (L, 64) tensor's head slice, rounded once (or as they are for float).
+// of a (L, ld) tensor's head slice, rounded once (or as they are for float).
 template <typename TO>
 __device__ __forceinline__ void store_tile(TO* dst, const float acc[4], int row0, int L,
-                                           int lane) {
+                                           int ld, int lane) {
   const int r = row0 + (lane >> 2), c = 2 * (lane & 3);
-  if (r < L) store2(dst + (size_t)r * D + c, acc[0], acc[1]);
-  if (r + 8 < L) store2(dst + (size_t)(r + 8) * D + c, acc[2], acc[3]);
+  if (r < L) store2(dst + (size_t)r * ld + c, acc[0], acc[1]);
+  if (r + 8 < L) store2(dst + (size_t)(r + 8) * ld + c, acc[2], acc[3]);
 }
 
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_core_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ out, const int L,
-                         const float inv_temp) {
+                         const int nh, const float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Lp = pad_tile(L);
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + (size_t)Lp * DK;
   bf16* sV = sK + (size_t)Lp * DK;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const size_t base = (size_t)b * L * D + h * DK;
-  load_head_padded(sQ, q + base, L, Lp, tid);
-  load_head_padded(sK, k + base, L, Lp, tid);
-  load_head_padded(sV, v + base, L, Lp, tid);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ld = nh * DK;
+  const int b = blockIdx.x / nh, h = blockIdx.x - b * nh;
+  const size_t base = (size_t)b * L * ld + h * DK;
+  load_head_padded(sQ, q + base, L, Lp, ld, tid);
+  load_head_padded(sK, k + base, L, Lp, ld, tid);
+  load_head_padded(sV, v + base, L, Lp, ld, tid);
   __syncthreads();
   const float knorm = warp_max_knorm<bf16, DK>(sK, L, lane);
   const float scale2 = __fmul_rn(inv_temp, EXP_UNIT);
@@ -277,7 +285,7 @@ attn_core_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float d0 = fmaxf(den[0], DEN_MIN), d1 = fmaxf(den[2], DEN_MIN);
     const float ctx[4] = {__fdiv_rn(num[0], d0), __fdiv_rn(num[1], d0), __fdiv_rn(num[2], d1),
                           __fdiv_rn(num[3], d1)};
-    store_tile(out + base, ctx, q0, L, lane);
+    store_tile(out + base, ctx, q0, L, ld, lane);
   }
 }
 
@@ -287,7 +295,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 attn_core_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ g,
                          TO* __restrict__ gq, TO* __restrict__ gk, TO* __restrict__ gv,
-                         const int L, const float inv_temp) {
+                         const int L, const int nh, const float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Lp = pad_tile(L);
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -297,13 +305,13 @@ attn_core_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sShift = reinterpret_cast<float*>(sGh + (size_t)Lp * DK);  // log2(e)·shift
   float* sR = sShift + Lp;                           // softmax-jacobian row dot
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, ld = nh * DK;
   const int row = lane >> 2, col = 2 * (lane & 3);
-  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
-  const size_t base = (size_t)b * L * D + h * DK;
-  load_head_padded(sQ, q + base, L, Lp, tid);
-  load_head_padded(sK, k + base, L, Lp, tid);
-  load_head_padded(sV, v + base, L, Lp, tid);
+  const int b = blockIdx.x / nh, h = blockIdx.x - b * nh;
+  const size_t base = (size_t)b * L * ld + h * DK;
+  load_head_padded(sQ, q + base, L, Lp, ld, tid);
+  load_head_padded(sK, k + base, L, Lp, ld, tid);
+  load_head_padded(sV, v + base, L, Lp, ld, tid);
   __syncthreads();
   const float knorm = warp_max_knorm<bf16, DK>(sK, L, lane);
   const float scale2 = __fmul_rn(inv_temp, EXP_UNIT);
@@ -321,8 +329,8 @@ attn_core_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // ĝ in the accumulator's layout is the A operand of g_a = Ĝ·Vᵀ as it is.
     const int t0 = q0 + row, t1 = t0 + 8;
     uint32_t g0 = 0u, g1 = 0u;  // rows >= L: ĝ = 0, so r = 0 and dS = 0
-    if (t0 < L) g0 = *reinterpret_cast<const uint32_t*>(g + base + (size_t)t0 * D + col);
-    if (t1 < L) g1 = *reinterpret_cast<const uint32_t*>(g + base + (size_t)t1 * D + col);
+    if (t0 < L) g0 = *reinterpret_cast<const uint32_t*>(g + base + (size_t)t0 * ld + col);
+    if (t1 < L) g1 = *reinterpret_cast<const uint32_t*>(g + base + (size_t)t1 * ld + col);
     uint32_t gha[2];
     gha[0] = pack2(__fdiv_rn(lo_f(g0), d0), __fdiv_rn(hi_f(g0), d0));
     gha[1] = pack2(__fdiv_rn(lo_f(g1), d1), __fdiv_rn(hi_f(g1), d1));
@@ -353,7 +361,7 @@ attn_core_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_rows_t(kt0, kt1, sK, s0, lane);
       mma_k16(acc, ds, kt0, kt1);
     }
-    store_tile(gq + base, acc, q0, L, lane);
+    store_tile(gq + base, acc, q0, L, ld, lane);
   }
   __syncthreads();
 
@@ -392,8 +400,8 @@ attn_core_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_rows_t(gt0, gt1, sGh, t0, lane);
       mma_k16(av, e, gt0, gt1);
     }
-    store_tile(gk + base, ak, s0, L, lane);
-    store_tile(gv + base, av, s0, L, lane);
+    store_tile(gk + base, ak, s0, L, ld, lane);
+    store_tile(gv + base, av, s0, L, ld, lane);
   }
 }
 
@@ -412,21 +420,22 @@ template <> size_t bwd_smem_bytes<bf16>(int L) {
   return 4 * (size_t)pad_tile(L) * DK * sizeof(bf16) + 2 * (size_t)pad_tile(L) * sizeof(float);
 }
 
+// One thread block per (batch row, head): a grid of B·nh.
 template <typename K, typename... Args>
-int launch(K kernel, int threads, size_t smem, int B, cudaStream_t stream, Args... args) {
+int launch(K kernel, int threads, size_t smem, int blocks, cudaStream_t stream, Args... args) {
   cudaError_t err = allow_shared_memory(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B * H, threads, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* out, int B, int L,
+int launch_fwd(const void* q, const void* k, const void* v, void* out, int B, int L, int nh,
                float inv_temp, cudaStream_t stream) {
   const auto run = [&](auto kernel, int threads) {
-    return launch(kernel, threads, fwd_smem_bytes<T>(L), B, stream, static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), L,
-                  inv_temp);
+    return launch(kernel, threads, fwd_smem_bytes<T>(L), B * nh, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<T*>(out), L, nh, inv_temp);
   };
   if constexpr (std::is_same<T, bf16>::value) return run(attn_core_fwd_mma_kernel, MMA_THREADS);
   else return run(attn_core_fwd_kernel<T>, THREADS);
@@ -434,43 +443,52 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, int B, in
 
 template <typename T, typename TO>
 int launch_bwd(const void* q, const void* k, const void* v, const void* g, void* gq,
-               void* gk, void* gv, int B, int L, float inv_temp, cudaStream_t stream) {
+               void* gk, void* gv, int B, int L, int nh, float inv_temp, cudaStream_t stream) {
   const auto run = [&](auto kernel, int threads) {
-    return launch(kernel, threads, bwd_smem_bytes<T>(L), B, stream, static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
-                  static_cast<TO*>(gq), static_cast<TO*>(gk), static_cast<TO*>(gv), L, inv_temp);
+    return launch(kernel, threads, bwd_smem_bytes<T>(L), B * nh, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(g), static_cast<TO*>(gq), static_cast<TO*>(gk),
+                  static_cast<TO*>(gv), L, nh, inv_temp);
   };
   if constexpr (std::is_same<T, bf16>::value) return run(attn_core_bwd_mma_kernel<TO>, MMA_THREADS);
   else return run(attn_core_bwd_kernel<T, TO>, THREADS);
 }
 
+bool heads_ok(int nh) { return nh == 1 || nh == 2 || nh == 4 || nh == 8; }
+
 }  // namespace
 
+// The whole-block training backward's stage: the model's H heads.
 int s2s::attn_core_bwd_f32(const void* q, const void* k, const void* v, const void* g,
                            float* gq, float* gk, float* gv, int B, int L, int dtype,
                            float inv_temp, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, stream);
-  if (dtype == 1) return launch_bwd<float, float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, stream);
+    return launch_bwd<__nv_bfloat16, float>(q, k, v, g, gq, gk, gv, B, L, H, inv_temp, stream);
+  if (dtype == 1)
+    return launch_bwd<float, float>(q, k, v, g, gq, gk, gv, B, L, H, inv_temp, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v, out: (B, L, 64) contiguous, bf16 (dtype 0) or f32 (dtype 1).
+// q, k, v, out: (B, L, 8·nh) contiguous, nh in {1, 2, 4, 8}, bf16 (dtype 0)
+// or f32 (dtype 1).
 extern "C" int s2s_attn_core_fwd(const void* q, const void* k, const void* v, void* out,
-                                 int B, int L, int dtype, float inv_temp, void* stream) {
+                                 int B, int L, int nh, int dtype, float inv_temp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<__nv_bfloat16>(q, k, v, out, B, L, inv_temp, s);
-  if (dtype == 1) return launch_fwd<float>(q, k, v, out, B, L, inv_temp, s);
+  if (!heads_ok(nh)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_fwd<__nv_bfloat16>(q, k, v, out, B, L, nh, inv_temp, s);
+  if (dtype == 1) return launch_fwd<float>(q, k, v, out, B, L, nh, inv_temp, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // g: the gradient of the loss by out, in q's dtype; gq, gk, gv: as q.
 extern "C" int s2s_attn_core_bwd(const void* q, const void* k, const void* v, const void* g,
-                                 void* gq, void* gk, void* gv, int B, int L, int dtype,
+                                 void* gq, void* gk, void* gv, int B, int L, int nh, int dtype,
                                  float inv_temp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!heads_ok(nh)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(q, k, v, g, gq, gk, gv, B, L, inv_temp, s);
-  if (dtype == 1) return launch_bwd<float, float>(q, k, v, g, gq, gk, gv, B, L, inv_temp, s);
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(q, k, v, g, gq, gk, gv, B, L, nh, inv_temp,
+                                                     s);
+  if (dtype == 1) return launch_bwd<float, float>(q, k, v, g, gq, gk, gv, B, L, nh, inv_temp, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,16 @@ tensors that require a gradient and every use casts them, as `linear` does; the 
 `train=True`, which keeps them off the fused inference kernel (its pointer
 cache assumes read-only blocks) and picks the training rung from
 `pallas_train` instead.
+
+The training forwards take a `mesh` (parallel/mesh.py): under dp the rank's
+activations are its slab of the batch and the dropout draws are the global
+batch's, cut to the slab; under tp the blocks are Megatron's (ops/attention.py)
+on the rank's weight shards. The rungs under tp follow the JAX package: `auto`
+takes the plain blocks; `core` runs the attention-core kernels on the rank's
+own heads (n_head / tp of them, packed at D = 8·n_head / tp); `block` runs the
+whole-block kernels on the whole block on every tp rank, its weights gathered
+over tp and each weight gradient kept as the rank's own slice (what pjit does
+to a pallas_call it cannot shard).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from ..ops.attention import _maybe_dropout, fft_block, linear
 from ..ops.block_train import fused_block_train, make_dropout_scales
 from ..ops.fft_block import fused_fft_block, fused_fft_block_pair
 from ..ops.positional import sinusoid_encoding_table
+from ..parallel.mesh import gather_for_kernel, global_rows
 
 
 def compute_dtype(config: dict) -> torch.dtype:
@@ -74,7 +85,8 @@ def _train_kernel_mode(config: dict, x: torch.Tensor,
     the block rung, `core` the core rung, `false` the plain one; `auto` is
     the block rung in bfloat16 on a GPU and plain otherwise (float32 is the
     fidelity mode). There is no step down to another rung: a kernel that
-    fails to build or launch raises."""
+    fails to build or launch raises. Under tensor parallelism (the config's
+    `tensor_parallel` above 1) `auto` is plain, as in the JAX package."""
     if x.shape[1] <= 32:
         return "plain"
     mode = config.get("pallas_train", "auto")
@@ -87,12 +99,21 @@ def _train_kernel_mode(config: dict, x: torch.Tensor,
     if mode == "auto":
         if on_cuda is None:
             on_cuda = x.is_cuda
-        return "block" if x.dtype == torch.bfloat16 and on_cuda else "plain"
+        tp = int(config.get("tensor_parallel", 1)) > 1
+        return "block" if x.dtype == torch.bfloat16 and on_cuda and not tp else "plain"
     raise ValueError(f"Unknown pallas_train: {mode!r}")
 
 
+def _dropout_scales(key: torch.Tensor, rate: float, h: torch.Tensor, mesh) -> torch.Tensor:
+    """make_dropout_scales at the global batch's shape, cut to the rank's slab."""
+    rows, start = global_rows(mesh, h.shape[0])
+    scales = make_dropout_scales(key, rate, (rows, *h.shape[1:]), h.dtype)
+    return scales[start:start + h.shape[0]] if rows != h.shape[0] else scales
+
+
 def _train_blocks(blocks, h: torch.Tensor, n_head: int, config: dict, rate: float,
-                  dropout_key: Optional[torch.Tensor], whole_block: bool) -> torch.Tensor:
+                  dropout_key: Optional[torch.Tensor], whole_block: bool,
+                  mesh=None) -> torch.Tensor:
     """The training forward of a block stack: per-block key fold_in(key, i),
     split into the attention-out and FFN-out dropout keys. `whole_block` is
     true for the decoder, which takes the block rung where the mode says so;
@@ -103,14 +124,14 @@ def _train_blocks(blocks, h: torch.Tensor, n_head: int, config: dict, rate: floa
             s_a = s_f = None
             if dropout_key is not None and rate > 0.0:
                 key_a, key_f = prng.split(prng.fold_in(dropout_key, i))
-                s_a = make_dropout_scales(key_a, rate, h.shape, h.dtype)
-                s_f = make_dropout_scales(key_f, rate, h.shape, h.dtype)
-            h = fused_block_train(h, block, s_a, s_f, n_head)
+                s_a = _dropout_scales(key_a, rate, h, mesh)
+                s_f = _dropout_scales(key_f, rate, h, mesh)
+            h = fused_block_train(h, gather_for_kernel(block, mesh), s_a, s_f, n_head)
         return h
     for i, block in enumerate(blocks):
         key_i = prng.fold_in(dropout_key, i) if dropout_key is not None else None
         h = fft_block(block, h, n_head, dropout_rate=rate, dropout_key=key_i,
-                      packed_core=mode in ("core", "block"))
+                      packed_core=mode in ("core", "block"), mesh=mesh)
     return h
 
 
@@ -272,7 +293,7 @@ def to_device(params: dict, device: torch.device, dtype: torch.dtype) -> dict:
 
 def encoder_forward(params: dict, one_hot: torch.Tensor, config: dict,
                     dropout_key: Optional[torch.Tensor] = None,
-                    train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                    train: bool = False, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """one_hot: (B, K, k*5). Returns (enc_out, emb_out), both (B, K, D);
     emb_out is the pre-positional-encoding tap that feeds the heads."""
     enc = params["encoder"]
@@ -284,20 +305,20 @@ def encoder_forward(params: dict, one_hot: torch.Tensor, config: dict,
     if train or dropout_key is not None:
         rate = config["encoder_dropout"] if dropout_key is not None else 0.0
         return _train_blocks(enc["blocks"], h, config["encoder_heads"], config, rate,
-                             dropout_key, whole_block=False), emb_out
+                             dropout_key, whole_block=False, mesh=mesh), emb_out
     return _blocks(enc["blocks"], h, config["encoder_heads"], config), emb_out
 
 
 def decoder_forward(params: dict, x: torch.Tensor, config: dict,
                     dropout_key: Optional[torch.Tensor] = None,
-                    train: bool = False) -> torch.Tensor:
+                    train: bool = False, mesh=None) -> torch.Tensor:
     """x: (B, T, D) length-regulated frames. Returns (B, T, 1) current (>= 0)."""
     dec = params["decoder"]
     h = x + dec["pos_enc"][: x.shape[1]].to(x.dtype)[None]
     if train or dropout_key is not None:
         rate = config["decoder_dropout"] if dropout_key is not None else 0.0
         h = _train_blocks(dec["blocks"], h, config["decoder_heads"], config, rate,
-                          dropout_key, whole_block=True)
+                          dropout_key, whole_block=True, mesh=mesh)
     else:
         h = _blocks(dec["blocks"], h, config["decoder_heads"], config, may_pair=True)
     return F.relu(linear(dec["out_linear"], h))
@@ -309,28 +330,28 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_head(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
-              dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+              dropout_key: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Linear -> ReLU -> (Dropout) -> Linear -> Softplus, squeezed to (B, K)."""
-    h = _maybe_dropout(F.relu(linear(p["fc1"], x)), dropout_rate, dropout_key)
+    h = _maybe_dropout(F.relu(linear(p["fc1"], x)), dropout_rate, dropout_key, mesh)
     return _softplus(linear(p["fc2"], h).float())[..., 0]
 
 
 def noise_head(params: dict, emb_out: torch.Tensor, config: dict,
-               dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+               dropout_key: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Per-k-mer amplitude-noise stdev, (B, K) float32."""
     rate = config["duration_dropout"] if dropout_key is not None else 0.0
-    return _mlp_head(params["noise_sampler"], emb_out, rate, dropout_key)
+    return _mlp_head(params["noise_sampler"], emb_out, rate, dropout_key, mesh)
 
 
 def duration_gamma_params(params: dict, emb_out: torch.Tensor, config: dict,
                           dropout_key: Optional[torch.Tensor] = None,
-                          epsilon: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+                          epsilon: float = 1e-8, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gamma (concentration, rate) per k-mer, each (B, K) float32, >= epsilon."""
     dur = params["duration_sampler"]
     rate_drop = config["duration_dropout"] if dropout_key is not None else 0.0
     k1 = k2 = None
     if dropout_key is not None:
         k1, k2 = prng.split(dropout_key)
-    conc = _mlp_head(dur["conc"], emb_out, rate_drop, k1)
-    rate = _mlp_head(dur["rate"], emb_out, rate_drop, k2)
+    conc = _mlp_head(dur["conc"], emb_out, rate_drop, k1, mesh)
+    rate = _mlp_head(dur["rate"], emb_out, rate_drop, k2, mesh)
     return conc.clamp_min(epsilon), rate.clamp_min(epsilon)

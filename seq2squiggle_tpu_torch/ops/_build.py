@@ -82,8 +82,8 @@ def _entries() -> dict:
         "s2s_fft_block", "s2s_fft_block_pair", "s2s_fft_block_abc", "s2s_fft_block_d",
         "s2s_fft_block_parts", "s2s_fft_block_ablate")}
     table.update({
-        "s2s_attn_core_fwd": (c_int, [ptr] * 4 + [c_int] * 3 + [c_float, ptr]),
-        "s2s_attn_core_bwd": (c_int, [ptr] * 7 + [c_int] * 3 + [c_float, ptr]),
+        "s2s_attn_core_fwd": (c_int, [ptr] * 4 + [c_int] * 4 + [c_float, ptr]),
+        "s2s_attn_core_bwd": (c_int, [ptr] * 7 + [c_int] * 4 + [c_float, ptr]),
         "s2s_block_train_workspace": (None, [c_int, c_int, ctypes.POINTER(ctypes.c_longlong)]),
         "s2s_block_train_fwd": (c_int, [ptr] * 4 + [ptrs, ptr, c_int, c_int, c_int, c_float, ptr]),
         "s2s_block_train_bwd": (c_int, [ptr] * 6 + [ptrs] + [ptr] * 3

@@ -6,6 +6,11 @@ Pallas kernel pair seq2squiggle_tpu/ops/pallas/attn_core.py::packed_attention_co
     ctx = softmax(q·kᵀ/√d_k)·v   per head; q, k, v, ctx all (B, L, D) with
                                   the heads packed along D
 
+d_k is 8 and the kernels take n_head in {1, 2, 4, 8} at D = 8·n_head: the
+model's 8 heads (D = 64), or the n_head / tp heads a tensor-parallel rank
+owns (4 at D = 32 under tp = 2). A head's work does not depend on the others,
+so the output on 4 heads is bit-equal to the 8-head call's on those heads.
+
 `PackedAttentionCore.apply(q, k, v, n_head)` is a torch.autograd.Function
 that saves only (q, k, v): the backward recomputes e and den as the forward
 does. On a CUDA tensor both directions launch the kernels of
@@ -46,7 +51,8 @@ import torch
 
 from . import _build
 
-D_MODEL, N_HEAD = 64, 8  # the widths the kernels are written for
+D_K = 8  # the head width the kernels are written for
+HEAD_COUNTS = (1, 2, 4, 8)  # the heads a call may pack (D = D_K * n_head)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 launches_fwd = 0  # forward-kernel launches; chip_smoke.py reads and resets it
@@ -120,9 +126,9 @@ def _check(n_head: int, *tensors: torch.Tensor) -> None:
     q = tensors[0]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"packed_attention_core takes bfloat16 or float32, not {q.dtype}")
-    if q.dim() != 3 or q.shape[-1] != D_MODEL or n_head != N_HEAD:
-        raise ValueError(f"the attention-core kernels are built for (B, L, {D_MODEL}) "
-                         f"and {N_HEAD} heads; got {tuple(q.shape)}, {n_head} heads")
+    if q.dim() != 3 or n_head not in HEAD_COUNTS or q.shape[-1] != D_K * n_head:
+        raise ValueError(f"the attention-core kernels are built for (B, L, {D_K}·n_head) "
+                         f"with n_head in {HEAD_COUNTS}; got {tuple(q.shape)}, {n_head} heads")
     for t in tensors[1:]:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k, v (and g) must share shape, dtype and device; got "
@@ -161,7 +167,7 @@ def _launch_fwd(q, k, v, n_head: int) -> torch.Tensor:
     if B == 0 or L == 0:
         return out
     err = _build.load().s2s_attn_core_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, L, _DTYPE_CODES[q.dtype],
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, L, n_head, _DTYPE_CODES[q.dtype],
         1.0 / math.sqrt(D // n_head),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
@@ -179,7 +185,7 @@ def _launch_bwd(q, k, v, g, n_head: int):
     if B == 0 or L == 0:
         return gq, gk, gv
     err = _build.load().s2s_attn_core_bwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(gq), _ptr(gk), _ptr(gv), B, L,
+        _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(gq), _ptr(gk), _ptr(gv), B, L, n_head,
         _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D // n_head),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:

@@ -268,12 +268,13 @@ def launch_kernel(entry: str, x: torch.Tensor, ptrs, option: int,
     if B == 0:
         return out
     lib = lib or _build.load()
-    err = getattr(lib, entry)(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), ptrs,
-        ctypes.c_int(B), ctypes.c_int(L), ctypes.c_int(_DTYPE_CODES[x.dtype]),
-        ctypes.c_float(1.0 / math.sqrt(D_MODEL // N_HEAD)), ctypes.c_int(option),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
+    with torch.cuda.device(x.device):  # x's card, whichever is current
+        err = getattr(lib, entry)(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), ptrs,
+            ctypes.c_int(B), ctypes.c_int(L), ctypes.c_int(_DTYPE_CODES[x.dtype]),
+            ctypes.c_float(1.0 / math.sqrt(D_MODEL // N_HEAD)), ctypes.c_int(option),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: {_build.error_string(err, lib)}")
     return out

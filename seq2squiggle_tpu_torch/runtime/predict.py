@@ -477,3 +477,39 @@ def _frame_outputs(outs) -> torch.Tensor:
     bytes, little-endian (as the GPU and x86 store them), in layout order."""
     B = outs[0].shape[0]
     return torch.cat([o.reshape(B, -1).contiguous().view(torch.uint8) for o in outs], dim=1)
+
+
+def predict_step_sharded(replicas: dict, codes, read_idx, chunk_off, base_keys: dict,
+                         n_kmers=None, *, config: dict, knobs: PredictKnobs,
+                         devices) -> torch.Tensor:
+    """Data-parallel predict over `devices`: the counterpart of the JAX
+    package's make_predict_fn_sharded (shard_map over a 1-D 'dp' mesh).
+
+    The batch's rows split shard-major into len(devices) equal slabs; slab i
+    runs `predict_step(..., framed=True)` on devices[i] with that device's
+    replica of the parameters (`replicas[device]`) and key
+    (`base_keys[device]`), so each shard packs its own flat buffers with its
+    own caps; the framed rows come back concatenated in shard order on
+    devices[0]. The per-chunk keys derive from global read indices, so the
+    rows are bit-identical to one device's. No collective: a device may
+    appear more than once (several shards on one card). Inputs are host
+    tensors or on any device; each slab moves to its own. One device is the
+    case n = 1: its rows come back as they are, with no copy."""
+    n = len(devices)
+    B = codes.shape[0]
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over {n} devices")
+    per = B // n
+    outs = []
+    for i, dev in enumerate(devices):
+        rows = slice(i * per, (i + 1) * per)
+
+        def put(t):
+            return None if t is None else t[rows].to(dev, non_blocking=True)
+
+        outs.append(predict_step(
+            replicas[dev], put(codes), put(read_idx), put(chunk_off), base_keys[dev],
+            put(n_kmers), config=config, knobs=knobs, framed=True))
+    if n == 1:
+        return outs[0]
+    return torch.cat([o.to(devices[0], non_blocking=True) for o in outs])

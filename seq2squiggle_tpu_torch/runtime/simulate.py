@@ -1,5 +1,4 @@
-"""The `predict` pipeline on one GPU: the port of
-seq2squiggle_tpu/runtime/simulate.py.
+"""The `predict` pipeline: the port of seq2squiggle_tpu/runtime/simulate.py.
 
 Reads stream from the host modules (io.reads.get_reads, batcher.iter_batches)
 into fixed-size chunk batches; each batch goes to the device through pinned
@@ -23,9 +22,18 @@ Every output format (BLOW5, SLOW5, POD5), profile (R10, R9, RNA) and read
 mode (reads, reference with -n or -c, whole contigs) of the JAX package runs
 through this loop, as do --num-shards / --shard-index (round-robin reads, one
 output file a shard), --trace-dir (a torch.profiler trace) and the stage
-timers (SEQ2SQUIGGLE_TPU_TIMERS=1: `timers` in the returned stats). One
-device per process: the JAX package's device-level data parallelism is not
-ported.
+timers (SEQ2SQUIGGLE_TPU_TIMERS=1: `timers` in the returned stats).
+
+Device-level data parallelism, as the JAX package's: with several devices
+(`device` as a list, or `--device cuda` with no index: every visible card) and a batch
+size that divides by their number, each batch's rows split shard-major over
+them (runtime/predict.predict_step_sharded), each device with its own replica
+of the parameters and its own packers; the framed rows come back in shard
+order, the ULP tier's decoder takes the per-shard flat buffers
+(`dp_shards`), and its first-batch probe judges the worst shard. There is no
+collective, and the output is bit-identical to one device's. A batch size
+that does not divide runs on the first device alone. A device may appear
+more than once: several shards on one card.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import prng
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..config import check_model_config
 from ..io.reads import get_reads
 from ..io.writers import BLOW5Writer, POD5Writer
@@ -51,7 +59,7 @@ from ..utils import tune_host_allocator
 from .async_writer import AsyncWriter
 from .batcher import iter_batches
 from .exporter import StreamingExporter
-from .predict import WIRE_ESC_NIB_PER_ROW, PredictKnobs, predict_step
+from .predict import WIRE_ESC_NIB_PER_ROW, PredictKnobs, predict_step_sharded
 from .wire import EventWireDecoder, delta_native, unframe_wire, unpack_wire
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
@@ -119,20 +127,27 @@ def start_wire_bits(wire_format: str, config: dict) -> int:
     return bits
 
 
-def ulp_budget_short(arrs) -> Optional[str]:
+def ulp_budget_short(arrs, dp_shards: int = 1) -> Optional[str]:
     """The first ULP batch's escape-budget check (JAX simulate.py:356-405):
-    the name of a batch-flat buffer with less than 8 sigma of Poisson
-    headroom over this batch's use of it, or None."""
+    the name of a flat buffer with less than 8 sigma of Poisson headroom over
+    this batch's use of it, or None. Each of `dp_shards` device shards packs
+    its own buffers with its own caps, so the use is the worst shard's (rows
+    are shard-major): an unbalanced batch can overflow one shard while the
+    batch's mean looks roomy."""
     stream, _, lvl_d, _, _, esc = arrs[:6]
-    B = stream.shape[0]
+    B_s = stream.shape[0] // dp_shards
     byte_vals = np.arange(256, dtype=np.uint16)
     esc_lut = sum((((byte_vals >> (2 * j)) & 3) == 3).astype(np.int64) for j in range(4))
+
+    def worst(used):  # the largest per-shard total
+        return int(np.asarray(used, np.int64).reshape(dp_shards, -1).sum(axis=1).max())
+
     usage = [
-        (int(esc_lut[stream].sum()), B * WIRE_ESC_NIB_PER_ROW, "escape"),
+        (worst(esc_lut[stream]), B_s * WIRE_ESC_NIB_PER_ROW, "escape"),
         # nibble 8 marks wides; unused escape slots are 0, never 8
-        (int(((esc & 0xF) == 8).sum() + ((esc >> 4) == 8).sum()), max(B // 4, 1),
+        (worst(((esc & 0xF) == 8).astype(np.int64) + ((esc >> 4) == 8)), max(B_s // 4, 1),
          "wide-jump"),
-        (int((lvl_d == np.int8(-127)).sum()), B, "level-escape"),
+        (worst(lvl_d == np.int8(-127)), B_s, "level-escape"),
     ]
     for n, cap, name in usage:
         if n + 8.0 * np.sqrt(n) > cap:
@@ -178,16 +193,28 @@ def simulate_run(
     trace_dir: Optional[str] = None,
     wire_format: str = "auto",
     slow5_press: str = "zstd",
-    device: torch.device = torch.device("cuda"),
+    device=torch.device("cuda"),
 ) -> dict:
-    """Run the simulation on `device` (a CUDA device that is not there
-    raises); returns a stats dict (reads, chunks, samples, seconds,
+    """Run the simulation on `device`: a device or its name (see
+    device.resolve_devices: `cuda` is every visible card), or a list of
+    devices to shard each batch over; a CUDA device that is not there
+    raises. Returns a stats dict (reads, chunks, samples, seconds,
     ksamples_per_s; wire_bits, the tier the run ended at; wire_decode, the
-    packed batches the C++ and the numpy decoders decoded; and with
-    SEQ2SQUIGGLE_TPU_TIMERS set, timers)."""
+    packed batches the C++ and the numpy decoders decoded; dp_shards, the
+    device shards of each batch; and with SEQ2SQUIGGLE_TPU_TIMERS set,
+    timers)."""
     if num_shards > 1 and not (0 <= shard_index < num_shards):
         raise ValueError("shard_index must be in [0, num_shards)")
-    device = resolve_device(device)
+    devices = ([resolve_device(d) for d in device] if isinstance(device, (list, tuple))
+               else resolve_devices(device))
+    if len(devices) > 1 and predict_batch_size % len(devices):
+        logger.info(f"Batch size {predict_batch_size} does not divide over {len(devices)} "
+                    f"devices; predicting on {devices[0]} alone")
+        devices = devices[:1]
+    elif len(devices) > 1:
+        logger.info(f"Data-parallel prediction over {len(devices)} devices")
+    dp_shards = len(devices)
+    device = devices[0]
     tune_host_allocator()
     profile_dict = update_profile(
         get_profile(profile),
@@ -209,7 +236,7 @@ def simulate_run(
     params, ckpt_config = resolve_weights(saved_weights, config, seed, profile)
     check_model_config(ckpt_config, config)
     logger.info(f"Model parameters: {count_params(params):,}")
-    params = to_device(params, device, compute_dtype(config))
+    replicas = {d: to_device(params, d, compute_dtype(config)) for d in dict.fromkeys(devices)}
 
     knobs = PredictKnobs(
         dwell_mean=float(dwell_mean),
@@ -225,7 +252,7 @@ def simulate_run(
         offset_mean=float(profile_dict["offset_mean"]),
         wire_bits=wire_bits,
     )
-    base_key = prng.key(seed, device)
+    base_keys = {d: prng.key(seed, d) for d in replicas}
 
     reads, total_chunks = get_reads(
         fasta, read_input, n, r, c, config, distr, seed, profile, min_read_len
@@ -260,21 +287,19 @@ def simulate_run(
     T_row = int(config["max_signal_len"])
     K_row = int(config["max_dna_len"])
 
-    def to_dev(a: np.ndarray) -> torch.Tensor:
+    def pinned(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
-        if on_gpu:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
+        return t.pin_memory() if on_gpu else t
 
     def to_host(t: torch.Tensor) -> torch.Tensor:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=on_gpu)
         return h.copy_(t, non_blocking=True)
 
     def step(batch, k: PredictKnobs) -> torch.Tensor:
-        return predict_step(
-            params, to_dev(batch.codes), to_dev(batch.read_idx),
-            to_dev(batch.chunk_off), base_key, to_dev(batch.n_kmers),
-            config=config, knobs=k, framed=True)
+        return predict_step_sharded(
+            replicas, pinned(batch.codes), pinned(batch.read_idx),
+            pinned(batch.chunk_off), base_keys, pinned(batch.n_kmers),
+            config=config, knobs=k, devices=devices)
 
     # The tier of the NEXT dispatch. Each in-flight buffer carries the bits
     # of the step that made it, so a step-down never decodes a buffer with
@@ -313,16 +338,18 @@ def simulate_run(
         arrs = unframe_wire(buf, bits, T_row, K_row)
         if bits == 2 and not state["ulp_probed"]:
             state["ulp_probed"] = True
-            short = ulp_budget_short(arrs)
+            short = ulp_budget_short(arrs, dp_shards)
             if short and state["knobs"].wire_bits == 2:
-                logger.info(f"ULP-tier probe: batch 0 used {short} (< 8 sigma "
-                            "headroom); switching to the 4-bit event tier proactively.")
+                logger.info(f"ULP-tier probe: batch 0's worst shard used {short} (< 8 "
+                            "sigma headroom); switching to the 4-bit event tier "
+                            "proactively.")
                 state["knobs"] = dataclasses.replace(state["knobs"], wire_bits=4)
         try:
             if bits in (2, 4):
                 if bits not in decoders:
                     decoders[bits] = EventWireDecoder(
-                        dataclasses.replace(knobs, wire_bits=bits), base_key, frames=T_row)
+                        dataclasses.replace(knobs, wire_bits=bits), base_keys[device], frames=T_row,
+                        dp_shards=dp_shards)
                 out = decoders[bits](arrs, batch.read_idx, batch.chunk_off)
                 decoded_by["native" if decoders[bits].native_used else "numpy"] += 1
                 return out, True
@@ -383,7 +410,7 @@ def simulate_run(
             done = None
             if on_gpu:
                 done = torch.cuda.Event()
-                done.record()
+                done.record(torch.cuda.current_stream(device))
             # decode and export the previous batch while this one computes
             # and copies
             if pending is not None:
@@ -412,6 +439,7 @@ def simulate_run(
         "ksamples_per_s": exporter.total_samples / elapsed / 1e3 if elapsed else 0.0,
         "wire_bits": state["knobs"].wire_bits,
         "wire_decode": decoded_by,
+        "dp_shards": dp_shards,
     }
     if timing:
         timers["finalize"] = time.perf_counter() - t_fin

@@ -181,13 +181,14 @@ class EventWireDecoder:
     """
 
     def __init__(self, knobs: PredictKnobs, base_key, use_native: bool = True,
-                 frames: int = None):
+                 frames: int = None, dp_shards: int = 1):
         self._knobs = knobs
         # prng.key(seed): two uint32 words in an int64 tensor, the words
         # jax.random.key_data gives
         self._base_key = base_key.detach().to("cpu")
         self._use_native = use_native
         self._frames = frames  # required for the ULP tier (stream pads to 4)
+        self._dp_shards = dp_shards  # ULP flat buffers are per device shard
         kd = [int(w) & 0xFFFFFFFF for w in self._base_key.tolist()]
         self._key_words = (kd[0], kd[1])
         self._T = None  # set on first call (static shape)
@@ -383,11 +384,15 @@ class EventWireDecoder:
         T = self._frames if self._frames is not None else stream.shape[1] * 4
         self._T = T
         rows = np.arange(B, dtype=np.intp)[:, None]
-        # The batch-flat buffers ship no offsets: rows consume each buffer in
-        # row-major order, so per-row starts are exclusive cumulative counts.
-        cap_esc = esc.size * 2  # nibbles
-        cap_wide = B // 4  # i32 slots (byte-packed)
-        cap_lvl = B  # u16 escaped-level slots
+        # A batch from dp_shards devices concatenates per-shard flat buffers,
+        # each with its own caps; no offsets ship on the wire: rows consume
+        # their shard's buffers in row-major order, so per-row starts are
+        # shard-local exclusive cumulative counts.
+        dp = self._dp_shards
+        B_s = B // dp
+        cap_esc_s = esc.size * 2 // dp  # nibbles per shard
+        cap_wide_s = B_s // 4  # i32 slots per shard (byte-packed)
+        cap_lvl_s = B_s  # u16 escaped-level slots per shard
 
         lib = _native_lib() if self._use_native else None
         native = lib is not None and T <= 255
@@ -429,8 +434,7 @@ class EventWireDecoder:
             flat = np.empty(B * T, np.int16)
             counts = np.empty(B, np.int32)
             # The C++ decoder regenerates each row's threefry normals inside
-            # its vector pass: no (B, T) gauss buffer exists at all. Its
-            # per-shard capacities are the batch's: the batch is one shard.
+            # its vector pass: no (B, T) gauss buffer exists at all.
             _t = time.perf_counter()
             _tc = time.thread_time()
             total = lib.ulp_event_wire_decode_fused(
@@ -444,7 +448,7 @@ class EventWireDecoder:
                 np.ascontiguousarray(wide_b).ctypes.data_as(u8p),
                 self._key_words[0], self._key_words[1],
                 coff.ctypes.data_as(i32p), ridx.ctypes.data_as(i32p),
-                B, T, K, B, cap_esc, cap_wide, cap_lvl,
+                B, T, K, B_s, cap_esc_s, cap_wide_s, cap_lvl_s,
                 noise_mode, sigma_scale_pa, sigma_tail_pa,
                 np.float32(knobs.noise_std), scale_s, dig, rng_f, offset,
                 flat.ctypes.data_as(i16p),
@@ -462,9 +466,14 @@ class EventWireDecoder:
         # ---- numpy fallback (parity oracle) ----
         _t = time.perf_counter()
 
-        def excl_offsets(row_counts):
-            """Per-row exclusive start offsets into a batch-flat buffer."""
-            return (np.cumsum(row_counts) - row_counts).astype(np.intp)
+        def shard_excl_offsets(row_counts):
+            """Per-row exclusive start offsets into the row's shard-local flat
+            buffer (rows are shard-major)."""
+            cum = np.cumsum(row_counts) - row_counts  # global exclusive
+            base = np.repeat(cum[0::B_s], B_s)[:B]
+            return (cum - base).astype(np.intp)
+
+        shard = rows // B_s  # (B, 1)
 
         # Event levels: u16 anchor + i8 deltas vs the previous non-zero
         # level; -128 = zero level, -127 = escape (exact u16 in lvl_esc).
@@ -472,9 +481,11 @@ class EventWireDecoder:
         is_zero_l = lvl_d_i == -128
         is_esc_l = lvl_d_i == -127
         lrank = np.cumsum(is_esc_l, axis=1) - is_esc_l
-        glidx = excl_offsets(is_esc_l.sum(axis=1))[:, None] + lrank
+        lvl_off = shard_excl_offsets(is_esc_l.sum(axis=1))
+        glidx = shard * cap_lvl_s + lvl_off[:, None] + lrank
         if is_esc_l.any():
-            if (glidx[is_esc_l] >= cap_lvl).any():
+            cap_end = np.broadcast_to((shard + 1) * cap_lvl_s, glidx.shape)
+            if (glidx[is_esc_l] >= cap_end[is_esc_l]).any():
                 raise RuntimeError(
                     "wire-format exception overflow: level-escape buffer "
                     "bounds exceeded at the ULP event tier"
@@ -504,12 +515,14 @@ class EventWireDecoder:
         d = (sym == 1).astype(np.int32) - (sym == 2).astype(np.int32)
         is_esc = sym == 3
         esc_i = is_esc.astype(np.int32)
-        # Flat nibble index per escape: derived row offset + row-local
-        # exclusive rank (row-major stream order, as packed).
+        # Flat nibble index per escape: shard base + derived row offset +
+        # row-local exclusive rank (row-major stream order, as packed).
         rank = np.cumsum(esc_i, axis=1) - esc_i
-        gidx = excl_offsets(esc_i.sum(axis=1))[:, None] + rank
+        esc_off = shard_excl_offsets(esc_i.sum(axis=1))
+        gidx = shard * cap_esc_s + esc_off[:, None] + rank
         if is_esc.any():
-            if (gidx[is_esc] >= cap_esc).any():
+            cap_end = np.broadcast_to((shard + 1) * cap_esc_s, gidx.shape)
+            if (gidx[is_esc] >= cap_end[is_esc]).any():
                 raise RuntimeError(
                     "wire-format exception overflow: escape buffer bounds "
                     "exceeded at the ULP event tier"
@@ -524,18 +537,23 @@ class EventWireDecoder:
         is_wide = is_esc & (esc_vals == 0)  # nibble 8 marks a wide jump
         wide_i = is_wide.astype(np.int32)
         wrank = np.cumsum(wide_i, axis=1) - wide_i
-        gwidx = excl_offsets(wide_i.sum(axis=1))[:, None] + wrank
+        wide_off = shard_excl_offsets(wide_i.sum(axis=1))
+        gwidx = shard * cap_wide_s + wide_off[:, None] + wrank
         if is_wide.any():
-            if (gwidx[is_wide] >= cap_wide).any():
+            cap_end = np.broadcast_to((shard + 1) * cap_wide_s, gwidx.shape)
+            if (gwidx[is_wide] >= cap_end[is_wide]).any():
                 raise RuntimeError(
                     "wire-format exception overflow: wide-jump buffer "
                     "bounds exceeded at the ULP event tier"
                 )
-        # The wide buffer ships as bytes (one per row, zero-padded); its i32
-        # slots occupy the first cap_wide*4 bytes.
-        wide_flat = np.zeros(max(cap_wide, 1), np.int32)
-        wide_flat[:cap_wide] = np.ascontiguousarray(
-            wide_b.reshape(-1)[:cap_wide * 4]).view(np.int32)
+        # The wide buffer ships as bytes (one per row, zero-padded); each
+        # shard's i32 slots occupy the first cap_wide_s*4 bytes of its span.
+        wb = wide_b.reshape(dp, B_s)
+        wide_flat = np.zeros(max(dp * cap_wide_s, 1), np.int32)
+        if cap_wide_s:
+            for sh in range(dp):
+                wide_flat[sh * cap_wide_s:(sh + 1) * cap_wide_s] = np.ascontiguousarray(
+                    wb[sh, :cap_wide_s * 4]).view(np.int32)
         wide_vals = wide_flat[np.minimum(gwidx, wide_flat.size - 1)]
         d = np.where(is_esc, np.where(is_wide, wide_vals, esc_vals), d)
 

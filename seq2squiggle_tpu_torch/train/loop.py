@@ -18,9 +18,21 @@ hand-written forward and backward kernels of ops/block_train.py; `core` runs
 only the attention core through those of ops/attn_core.py; `false` (and
 `auto` in float32 or on the CPU) is plain PyTorch.
 
-Not ported (raises NotImplementedError): `tensor_parallel > 1` and more
-than one device or process. There is no probe ladder: a kernel that fails to
-build or launch raises, and no rung steps down to another. A validation plot
+Several processes (parallel/distributed.py starts them; one rank a process,
+each on its own device) train as the JAX package trains on several devices:
+the ranks lay out as a ('dp', 'tp') mesh (parallel/mesh.py), tp = the
+config's `tensor_parallel` (`train --tp`), which must divide the world, and
+dp = world / tp where the batch divides by it (else a warning, and each rank
+runs unsharded). Every rank iterates the same permutation and reads its dp
+slab of each batch (`epoch_batches(local_rows=...)`); the loss divides by
+the global batch's valid rows, so the gradients summed over dp are the
+global batch's; tp shards the weights (models/fft_model.py). Rank 0 alone
+logs metrics, draws plots and writes checkpoints, from parameters and
+optimizer state gathered on every rank first (a gather on rank 0 alone would
+deadlock); `train_state.npz` holds the whole leaves in optax's order, so the
+JAX package loads it and `--resume` at another tp re-shards it. There is no
+probe ladder: a kernel that fails to build or launch raises, and no rung
+steps down to another. A validation plot
 that fails logs a warning and training goes on, as in the JAX package; the
 plots run in float32 on the plain blocks, so no kernel runs inside them.
 """
@@ -58,68 +70,91 @@ from ..models.weights import (
     save_native_checkpoint,
 )
 from ..ops.regulator import length_regulate
+from ..parallel.distributed import world as world_and_rank
+from ..parallel.mesh import (
+    dp_sum,
+    dp_sum_all,
+    gather_params,
+    make_mesh,
+    shard_params,
+)
 from .data import ChunkDataset, epoch_batches, load_file_groups
 from .losses import total_loss
 from .metrics import MetricsLogger
-from .optimizers import Optimizer, build_optimizer, global_norm
+from .optimizers import Optimizer, build_optimizer, leaf_square_sums
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
 
 def model_forward_train(params: dict, batch: Dict[str, torch.Tensor], config: dict,
-                        dropout_key: Optional[torch.Tensor]):
-    """Shared train/valid forward. Returns (prediction, conc, rate, noise_pred)."""
+                        dropout_key: Optional[torch.Tensor], mesh=None):
+    """Shared train/valid forward. Returns (prediction, conc, rate, noise_pred).
+    Under a mesh the batch is the rank's slab and params its shards."""
     B, K = batch["chunks"].shape[:2]
     data = batch["chunks"].reshape(B, K, -1).to(compute_dtype(config))
 
     keys = prng.split(dropout_key, 4) if dropout_key is not None else [None] * 4
-    enc_out, emb_out = encoder_forward(params, data, config, dropout_key=keys[0], train=True)
+    enc_out, emb_out = encoder_forward(params, data, config, dropout_key=keys[0], train=True,
+                                       mesh=mesh)
 
     emb_detached = emb_out.detach().float()
-    noise_pred = noise_head(params, emb_detached, config, dropout_key=keys[1])
-    conc, rate = duration_gamma_params(params, emb_detached, config, dropout_key=keys[2])
+    noise_pred = noise_head(params, emb_detached, config, dropout_key=keys[1], mesh=mesh)
+    conc, rate = duration_gamma_params(params, emb_detached, config, dropout_key=keys[2],
+                                       mesh=mesh)
 
     expanded, _, _ = length_regulate(enc_out, batch["chunks_lengths"],
                                      config["max_signal_len"])
-    prediction = decoder_forward(params, expanded, config, dropout_key=keys[3], train=True)
+    prediction = decoder_forward(params, expanded, config, dropout_key=keys[3], train=True,
+                                 mesh=mesh)
     return prediction.float(), conc, rate, noise_pred
 
 
-def loss_fn(params, batch, mask, config, dropout_key):
+def loss_fn(params, batch, mask, config, dropout_key, mesh=None):
+    """The loss and its terms. Under dp each rank's terms are its slab's
+    share of the global batch's means (they sum over dp to the global loss)."""
+    n_valid = None
+    if mesh is not None and mesh.dp_group is not None:
+        n_valid = dp_sum(mask.sum().clone(), mesh)
     prediction, conc, rate, noise_pred = model_forward_train(params, batch, config,
-                                                             dropout_key)
+                                                             dropout_key, mesh)
     return total_loss(prediction, batch["targets"], conc, rate, batch["chunks_lengths"],
-                      noise_pred, batch["stdevs"], mask)
+                      noise_pred, batch["stdevs"], mask, n_valid)
 
 
-def per_param_grad_norms(paths, grads) -> Dict[str, torch.Tensor]:
-    """grad_norm/<a/b/0/c> per leaf, the JAX package's names."""
-    return {f"grad_norm/{'/'.join(p)}": torch.linalg.vector_norm(g.float())
-            for p, g in zip(paths, grads)}
+def _dp_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The loss terms summed over dp: the global batch's."""
+    names = list(metrics)
+    summed = dp_sum_all([metrics[k].detach() for k in names], mesh)
+    return dict(zip(names, summed))
 
 
-def make_train_step(config: dict, optimizer: Optimizer):
+def make_train_step(config: dict, optimizer: Optimizer, mesh=None):
     """(params, opt_state, batch, mask, key) -> metrics; parameters and the
-    optimizer state are updated in place."""
+    optimizer state are updated in place. Under a mesh: the rank's slab and
+    shards, the gradients summed over dp, the metrics the global batch's."""
 
     def step(params, opt_state, batch, mask, key):
         paths, leaves = zip(*tree_leaves(params))
-        _, metrics = loss_fn(params, batch, mask, config, key)
-        grads = torch.autograd.grad(metrics["total_loss"], leaves)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
-        metrics.update(per_param_grad_norms(paths, grads))
+        _, metrics = loss_fn(params, batch, mask, config, key, mesh)
+        grads = dp_sum_all(torch.autograd.grad(metrics["total_loss"], leaves), mesh)
+        metrics = _dp_metrics(metrics, mesh)
+        # the global norm and each leaf's (grad_norm/<a/b/0/c>, the JAX
+        # package's names), whole leaves under tp
+        squares = leaf_square_sums(grads, optimizer.axes, mesh)
+        metrics["grad_norm"] = torch.sqrt(sum(squares.unbind()))
+        metrics.update({f"grad_norm/{'/'.join(p)}": n
+                        for p, n in zip(paths, squares.sqrt().unbind())})
         optimizer.update(grads, opt_state, leaves)
         return metrics
 
     return step
 
 
-def make_valid_step(config: dict):
+def make_valid_step(config: dict, mesh=None):
     def step(params, batch, mask):
         with torch.no_grad():
-            _, metrics = loss_fn(params, batch, mask, config, None)
-        return metrics
+            _, metrics = loss_fn(params, batch, mask, config, None, mesh)
+        return _dp_metrics(metrics, mesh)
 
     return step
 
@@ -212,11 +247,24 @@ def load_train_state(path: str):
     return {"params": params, "opt_leaves": opt_leaves, "epoch": int(meta["epoch"])}
 
 
-def _check_supported(config: dict) -> None:
-    if max(1, int(config.get("tensor_parallel", 1))) > 1:
-        raise NotImplementedError(
-            "tensor_parallel > 1 (and training over more than one device or "
-            "process) is not ported to the GPU yet (ROADMAP.md, module queue A12)")
+def choose_mesh(config: dict, batch_size: int):
+    """The JAX package's choice of layout (its train_run): tp from the config,
+    which must divide the world (else ValueError); dp = world / tp where the
+    batch divides by it; otherwise a warning when tp was asked for and no
+    mesh (each rank runs unsharded). Every rank calls this: it makes the
+    mesh's process groups."""
+    n_world, _ = world_and_rank()
+    n_tp = max(1, int(config.get("tensor_parallel", 1)))
+    if n_tp > 1 and n_world % n_tp != 0:
+        raise ValueError(f"tensor_parallel={n_tp} does not divide the device count {n_world}")
+    n_dp = n_world // n_tp
+    if n_world > 1 and batch_size % n_dp == 0:
+        logger.info(f"Training over {n_world} devices (dp={n_dp}, tp={n_tp})")
+        return make_mesh(n_dp, n_tp)
+    if n_tp > 1:
+        logger.warning(f"tensor_parallel={n_tp} requested but only {n_world} device(s) "
+                       "available or batch not divisible; running unsharded.")
+    return None
 
 
 def train_run(
@@ -233,9 +281,11 @@ def train_run(
 ) -> dict:
     """Train a model on `device` (a CUDA device that is not there raises);
     returns the final metrics. Checkpoints land next to model_path (or in
-    ./logs-<log_name>/, as the reference does)."""
-    _check_supported(config)
+    ./logs-<log_name>/, as the reference does). In a multi-process run every
+    rank calls this with the same arguments; `cuda` is the rank's card."""
     device = resolve_device(device)
+    mesh = choose_mesh(config, int(config["train_batch_size"]))
+    is_primary = world_and_rank()[1] == 0
     if model_path is not None:
         log_dir, filename = os.path.split(str(model_path))
         ckpt_name = os.path.splitext(filename)[0] or "last"
@@ -264,7 +314,6 @@ def train_run(
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
     total_steps = steps_per_epoch * int(config["max_epochs"])
 
-    optimizer = build_optimizer(config, total_steps)
 
     start_epoch = 0
     state_path = os.path.join(log_dir, "train_state.npz")
@@ -280,14 +329,16 @@ def train_run(
     elif resume:
         logger.warning(f"--resume requested but {state_path} not found; starting fresh.")
 
-    params = to_train_params(params, device)
+    params = to_train_params(shard_params(params, mesh), device)
     leaves = [v for _, v in tree_leaves(params)]
+    optimizer = build_optimizer(config, total_steps, params, mesh)
     opt_state = optimizer.init(leaves)
     if saved is not None:
         opt_state = optimizer.restore_state(opt_state, saved["opt_leaves"])
 
-    train_step = make_train_step(config, optimizer)
-    valid_step = make_valid_step(config)
+    train_step = make_train_step(config, optimizer, mesh)
+    valid_step = make_valid_step(config, mesh)
+    local_rows = mesh.local_rows(batch_size) if mesh is not None and mesh.n_dp > 1 else None
 
     on_gpu = device.type == "cuda"
 
@@ -300,7 +351,7 @@ def train_run(
 
         return {k: put(v) for k, v in batch.items()}, put(mask)
 
-    metrics_log = MetricsLogger(log_dir, config)
+    metrics_log = MetricsLogger(log_dir, config) if is_primary else None
     rng = np.random.default_rng(seed)
     base_key = prng.key(seed, device)
 
@@ -308,7 +359,7 @@ def train_run(
     last_metrics: Dict[str, float] = {}
     for epoch in range(start_epoch, int(config["max_epochs"])):
         for i, (batch, mask) in enumerate(
-                epoch_batches(train_ds, batch_size, rng, shuffle=True)):
+                epoch_batches(train_ds, batch_size, rng, shuffle=True, local_rows=local_rows)):
             if max_steps_per_epoch and i >= max_steps_per_epoch:
                 break
             dropout_key = prng.fold_in(base_key, step)
@@ -317,7 +368,8 @@ def train_run(
             if step % 100 == 0:
                 host = {f"train_{k}": float(v) for k, v in metrics.items()}
                 host["lr_epoch"] = epoch
-                metrics_log.log(host, step=step)
+                if is_primary:
+                    metrics_log.log(host, step=step)
                 last_metrics = host
             step += 1
 
@@ -325,7 +377,8 @@ def train_run(
         val_accum: Dict[str, torch.Tensor] = {}
         n_val = 0
         first_batch = None
-        for batch, mask in epoch_batches(valid_ds, batch_size, rng, shuffle=False):
+        for batch, mask in epoch_batches(valid_ds, batch_size, rng, shuffle=False,
+                                         local_rows=local_rows):
             batch, mask = place_batch(batch, mask)
             if first_batch is None:
                 first_batch = batch
@@ -334,30 +387,37 @@ def train_run(
             n_val += 1
         if n_val:
             val_metrics = {f"valid_{k}": float(v) / n_val for k, v in val_accum.items()}
-            metrics_log.log(val_metrics, step=step)
+            if is_primary:
+                metrics_log.log(val_metrics, step=step)
             last_metrics.update(val_metrics)
             logger.info(f"epoch {epoch}: "
                         + ", ".join(f"{k}={v:.5f}" for k, v in val_metrics.items()))
 
-        if save_valid_plots and first_batch is not None:
+        # whole parameters on every rank (a collective) for rank 0's plots and files
+        plots = save_valid_plots and first_batch is not None
+        whole = (gather_params(params, mesh) if plots or config.get("save_model", True)
+                 else None)
+        if plots and is_primary:
             try:
                 from .plots import generate_validation_plots
 
-                generate_validation_plots(params, config, first_batch, epoch, log_dir,
+                generate_validation_plots(whole, config, first_batch, epoch, log_dir,
                                           prng.fold_in(base_key, 10_000 + epoch))
             except Exception as exc:  # plots must never stop training
                 logger.warning(f"Validation plots failed: {exc}")
 
         # ---- checkpoints: weights-only npz per epoch (save_top_k=-1) ----
         if config.get("save_model", True):
-            host_params = params_to_jax(params)
+            opt_leaves = optimizer.state_leaves(opt_state)  # whole leaves, every rank
+        if config.get("save_model", True) and is_primary:
+            host_params = params_to_jax(whole)
             save_native_checkpoint(os.path.join(log_dir, f"{ckpt_name}-epoch{epoch}.npz"),
                                    host_params, config)
             save_native_checkpoint(os.path.join(log_dir, f"{ckpt_name}.npz"),
                                    host_params, config)
-            _save_train_state(state_path, host_params, optimizer.state_leaves(opt_state),
-                              epoch)
+            _save_train_state(state_path, host_params, opt_leaves, epoch)
 
-    metrics_log.close()
+    if metrics_log is not None:
+        metrics_log.close()
     logger.info("Training finished.")
     return last_metrics

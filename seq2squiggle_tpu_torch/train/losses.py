@@ -4,7 +4,10 @@ get_loss, src/seq2squiggle/model.py:419-480):
 total = MSE(signal) + 0.0005 * mean(-Gamma.log_prob(|durations|)) + MSE(noise)
 
 All terms take a per-sample mask so padded rows of the final batch do not
-contribute. `torch.lgamma` stands for `gammaln`; XLA's float32 lgamma and
+contribute. Under data parallelism a rank holds a slab of the batch and
+passes `n_valid`, the global batch's count of valid rows: each term is then
+the slab's share of the global mean, and the ranks' terms (and gradients) sum
+to the global batch's. `torch.lgamma` stands for `gammaln`; XLA's float32 lgamma and
 torch's agree to about 5e-4 relative.
 """
 
@@ -18,12 +21,13 @@ import torch
 DURATION_LOSS_SCALE = 0.0005
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over elements whose sample row is valid. x: (B, ...), mask: (B,)."""
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, n_valid=None) -> torch.Tensor:
+    """Mean over elements whose sample row is valid. x: (B, ...), mask: (B,);
+    n_valid: the valid rows the mean is over, when not mask's own."""
     m = mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
     per_elem = math.prod(x.shape[1:]) if x.dim() > 1 else 1
     total = (x * m).sum()
-    count = mask.sum() * per_elem
+    count = (mask.sum() if n_valid is None else n_valid) * per_elem
     return total / count.clamp_min(1.0)
 
 
@@ -42,17 +46,18 @@ def total_loss(
     noise_std_prediction: torch.Tensor,  # (B, K)
     noise_std_target: torch.Tensor,  # (B, K), already / scaling_max_value
     sample_mask: torch.Tensor,  # (B,)
+    n_valid: torch.Tensor = None,  # the global batch's valid rows (dp), or None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    signal_loss = _masked_mean((prediction - targets).square(), sample_mask)
+    signal_loss = _masked_mean((prediction - targets).square(), sample_mask, n_valid)
 
     # durations: abs + map zeros to 1 (model.py:465)
     x = data_ls.float().abs()
     x = x + (data_ls == 0).float()
     nll = -gamma_log_prob(conc, rate, x)
-    duration_loss = _masked_mean(nll, sample_mask) * DURATION_LOSS_SCALE
+    duration_loss = _masked_mean(nll, sample_mask, n_valid) * DURATION_LOSS_SCALE
 
     noise_loss = _masked_mean((noise_std_target - noise_std_prediction).square(),
-                              sample_mask)
+                              sample_mask, n_valid)
 
     total = signal_loss + duration_loss + noise_loss
     return total, {

@@ -22,16 +22,30 @@ its chain has; AdaFactor's moments are "v_row", "v_col" and "v"), and
 first moments, second moments, the schedule's count; moments in the
 sorted-key order of the parameter tree), so a train state crosses between
 the two packages.
+
+Under tensor parallelism (`build_optimizer` given the rank's shards and the
+mesh, parallel/mesh.py, which fix each leaf's tp axis and whole shape for the
+run) a leaf is the rank's shard and every quantity optax
+takes over a whole leaf is taken over the whole leaf: the clipping norm sums
+the squares of a sharded leaf over tp and counts a replicated leaf once;
+AdaFactor decides `factored_dims` on the whole shape, and a factored mean, the
+update's block RMS or the parameter's RMS that runs over a sharded axis is
+summed over tp. `state_leaves` gathers the sharded moments, so a train state
+holds whole leaves in optax's order at any tp degree, and `restore_state`
+cuts them to the rank's shards again.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..models.fft_model import tree_leaves
+from ..parallel.mesh import gather_tensor, shard_axis, shard_tensor, spec_for, tp_sum
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
@@ -129,14 +143,32 @@ def build_schedule(config: dict, total_steps: int) -> Schedule:
 # ---------------------------------------------------------------------------
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ x²) over all leaves in float32: optax.global_norm."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def _tp(axis, mesh):
+    """The leaf's tp axis where a tp group runs, else None."""
+    return axis if mesh is not None and mesh.tp_group is not None else None
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def leaf_square_sums(tensors: Sequence[torch.Tensor], axes=None, mesh=None) -> torch.Tensor:
+    """Σ x² of each whole leaf in float32: a leaf sharded over tp (its axis in
+    `axes`) summed over the tp ranks, one collective for all of them."""
+    sums = torch.stack([t.float().square().sum() for t in tensors])
+    if axes is not None and mesh is not None and mesh.tp_group is not None:
+        sharded = torch.tensor([a is not None for a in axes], device=sums.device)
+        whole = tp_sum(torch.where(sharded, sums, torch.zeros_like(sums)), mesh)
+        sums = torch.where(sharded, whole, sums)
+    return sums
+
+
+def global_norm(tensors: Sequence[torch.Tensor], axes=None, mesh=None) -> torch.Tensor:
+    """sqrt(Σ x²) over all leaves in float32, summed leaf by leaf in order:
+    optax.global_norm (whole leaves under tp)."""
+    return torch.sqrt(sum(leaf_square_sums(tensors, axes, mesh).unbind()))
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, axes=None,
+                        mesh=None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: g where norm < max_norm, else (g / norm) * max_norm."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, axes, mesh)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -202,6 +234,40 @@ def _adafactor_moment_shape(moment: str, shape: Sequence[int]):
     return tuple(n for i, n in enumerate(shape) if i != drop)
 
 
+def _drop_axis(axis, dropped: int):
+    """Where axis `axis` lands once axis `dropped` is reduced away."""
+    if axis is None or axis == dropped:
+        return None
+    return axis - (axis > dropped)
+
+
+def _adafactor_moment_axis(moment: str, shape: Sequence[int], axis):
+    """The tp axis of a leaf's v_row, v_col or v (shape: the whole leaf's)."""
+    dims = factored_dims(shape)
+    if dims is None:
+        return axis if moment == "v" else None
+    if moment == "v":
+        return None
+    return _drop_axis(axis, dims[1] if moment == "v_row" else dims[0])
+
+
+def _whole_shape(shape: Sequence[int], axis, mesh) -> tuple:
+    shape = list(shape)
+    if axis is not None:
+        shape[axis] *= mesh.n_tp
+    return tuple(shape)
+
+
+def _mean(t: torch.Tensor, dim, sharded: bool, mesh, keepdim: bool = False) -> torch.Tensor:
+    """t.mean(dim), dim=None for all; over the whole leaf where `sharded`
+    (the sum over tp, divided by the whole count)."""
+    if not sharded:
+        return t.mean() if dim is None else t.mean(dim=dim, keepdim=keepdim)
+    if dim is None:
+        return tp_sum(t.sum(), mesh) / (t.numel() * mesh.n_tp)
+    return tp_sum(t.sum(dim=dim, keepdim=keepdim), mesh) / (t.shape[dim] * mesh.n_tp)
+
+
 def adafactor_decay(count: int, decay_rate: float = 0.8) -> float:
     """optax's _decay_rate_pow at step `count` (0 for the first update),
     1 - (count + 1)^-0.8, evaluated in float32 as optax does."""
@@ -209,27 +275,34 @@ def adafactor_decay(count: int, decay_rate: float = 0.8) -> float:
     return float(1.0 - t ** -decay_rate)
 
 
-def adafactor_direction(g, v_row, v_col, v, decay: float, eps: float = 1e-30) -> torch.Tensor:
+def adafactor_direction(g, v_row, v_col, v, decay: float, eps: float = 1e-30,
+                        axis=None, mesh=None) -> torch.Tensor:
     """optax.scale_by_factored_rms then clip_by_block_rms(1.0), with the
-    step's `decay` (adafactor_decay); the moments are updated in place."""
+    step's `decay` (adafactor_decay); the moments are updated in place. g is
+    the rank's shard of a leaf sharded over tp on `axis` (None: whole)."""
+    axis = _tp(axis, mesh)
     g2 = g * g + eps
-    dims = factored_dims(g.shape)
+    dims = factored_dims(_whole_shape(g.shape, axis, mesh))
     if dims is not None:
         d1, d0 = dims
-        v_row.copy_(decay * v_row + (1.0 - decay) * g2.mean(dim=d0))
-        v_col.copy_(decay * v_col + (1.0 - decay) * g2.mean(dim=d1))
+        v_row.copy_(decay * v_row + (1.0 - decay) * _mean(g2, d0, axis == d0, mesh))
+        v_col.copy_(decay * v_col + (1.0 - decay) * _mean(g2, d1, axis == d1, mesh))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+        row_mean = _mean(v_row, reduced_d1, _drop_axis(axis, d0) == reduced_d1, mesh,
+                         keepdim=True)
+        row_factor = (v_row / row_mean) ** -0.5
         u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
     else:
         v.copy_(decay * v + (1.0 - decay) * g2)
         u = g * v ** -0.5
-    return u / torch.clamp(u.square().mean().sqrt(), min=1.0)
+    return u / torch.clamp(_mean(u.square(), None, axis is not None, mesh).sqrt(), min=1.0)
 
 
-def param_block_rms(p: torch.Tensor, min_scale: float = 1e-3) -> torch.Tensor:
+def param_block_rms(p: torch.Tensor, min_scale: float = 1e-3, axis=None,
+                    mesh=None) -> torch.Tensor:
     """optax's safe_root_mean_squares(p, min_scale): the leaf's RMS, floored."""
-    return torch.clamp(p.detach().square().mean().sqrt(), min=min_scale)
+    sharded = _tp(axis, mesh) is not None
+    return torch.clamp(_mean(p.detach().square(), None, sharded, mesh).sqrt(), min=min_scale)
 
 
 class Optimizer:
@@ -241,31 +314,58 @@ class Optimizer:
                 "SGD": (), "RMSProp": ("nu",), "AdaFactor": ("v_row", "v_col", "v")}
     _COUNTED = ("Adam", "AdamW", "RAdam", "AdaFactor")  # a step count leads the state
 
-    def __init__(self, name: str, schedule: Schedule, weight_decay: float, clip: float):
+    def __init__(self, name: str, schedule: Schedule, weight_decay: float, clip: float,
+                 mesh=None, axes: Optional[Sequence] = None,
+                 shapes: Optional[Sequence] = None):
+        """Under a tp mesh, `axes` gives each leaf's tp axis (None: replicated)
+        and `shapes` each whole leaf's shape, in tree_leaves order; without
+        one the leaves are whole."""
         if name not in self._MOMENTS:
             raise ValueError(f"Unknown optimizer: {name}")
         self.name = name
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.clip = clip
+        tp = mesh is not None and mesh.tp_group is not None
+        self.mesh = mesh if tp else None
+        self.axes = list(axes) if tp else None
+        self._whole = [tuple(s) for s in shapes] if tp else None
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
-        def shape(m, p):
-            return _adafactor_moment_shape(m, p.shape) if self.name == "AdaFactor" else p.shape
-
-        state: Dict = {m: [torch.zeros(shape(m, p), dtype=torch.float32, device=p.device)
-                           for p in params] for m in self._MOMENTS[self.name]}
+        """The fresh state for `params` (the rank's shards under tp)."""
+        whole = self._whole or [tuple(p.shape) for p in params]
+        state: Dict = {m: [torch.zeros(self._local_shape(m, i, whole[i]), dtype=torch.float32,
+                                       device=p.device) for i, p in enumerate(params)]
+                       for m in self._MOMENTS[self.name]}
         if self.name in self._COUNTED:
             state["count"] = 0
         state["sched_count"] = 0
         return state
 
+    def _axis(self, i: int):
+        """Leaf i's tp axis (None: replicated or no tp)."""
+        return None if self.axes is None else self.axes[i]
+
+    def _moment_axis(self, m: str, i: int):
+        """The tp axis of leaf i's moment m (None: replicated or no tp)."""
+        if self.axes is None:
+            return None
+        if self.name == "AdaFactor":
+            return _adafactor_moment_axis(m, self._whole[i], self.axes[i])
+        return self.axes[i]
+
+    def _local_shape(self, m: str, i: int, whole: tuple) -> tuple:
+        if self.name == "AdaFactor":
+            whole = _adafactor_moment_shape(m, whole)
+        axis = self._moment_axis(m, i)
+        return tuple(n // self.mesh.n_tp if d == axis else n for d, n in enumerate(whole))
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: Dict,
                params: Sequence[torch.Tensor]) -> None:
-        name, wd = self.name, self.weight_decay
+        name, wd, mesh = self.name, self.weight_decay, self.mesh
         if self.clip > 0:
-            grads = clip_by_global_norm(grads, self.clip)
+            grads = clip_by_global_norm(grads, self.clip, self.axes, mesh)
         if wd and name not in ("AdamW", "AdaFactor"):  # L2 on the gradient, as torch's Adam
             grads = [g + wd * p for g, p in zip(grads, params)]
         lr = self.schedule(state["sched_count"])
@@ -277,8 +377,8 @@ class Optimizer:
         for i, (g, p) in enumerate(zip(grads, params)):
             if name == "AdaFactor":  # lr, then the parameter's scale, then the sign
                 u = adafactor_direction(g, state["v_row"][i], state["v_col"][i],
-                                        state["v"][i], decay)
-                p.sub_((lr * u) * param_block_rms(p))
+                                        state["v"][i], decay, axis=self._axis(i), mesh=mesh)
+                p.sub_((lr * u) * param_block_rms(p, axis=self._axis(i), mesh=mesh))
                 continue
             if name in ("Adam", "AdamW"):
                 u = adam_direction(g, state["mu"][i], state["nu"][i], state["count"],
@@ -294,44 +394,66 @@ class Optimizer:
             p.add_(u * -lr)
 
     def state_leaves(self, state: Dict) -> List[np.ndarray]:
-        """The state as optax's tree_leaves would list it."""
+        """The state as optax's tree_leaves would list it, whole leaves: a
+        moment sharded over tp is gathered (a collective under tp, so every
+        rank of a dp row calls this)."""
         leaves: List[np.ndarray] = []
         if "count" in state:
             leaves.append(np.asarray(state["count"], np.int32))
         for m in self._MOMENTS[self.name]:
-            leaves.extend(t.detach().cpu().numpy() for t in state[m])
+            leaves.extend(gather_tensor(t.detach(), self._moment_axis(m, i), self.mesh)
+                          .cpu().numpy() for i, t in enumerate(state[m]))
         leaves.append(np.asarray(state["sched_count"], np.int32))
         return leaves
 
     def restore_state(self, fresh: Dict, saved_leaves: Sequence[np.ndarray]) -> Dict:
         """The JAX package's train/loop.py::restore_opt_state: graft saved leaf
-        values onto a freshly initialised state, checking
-        the leaf count and every shape so that a config or optimizer mismatch
-        fails loudly instead of mis-assigning moments."""
-        want = self.state_leaves(fresh)
+        values (whole leaves) onto a freshly initialised state, checking the
+        leaf count and every shape so that a config or optimizer mismatch
+        fails loudly instead of mis-assigning moments; a moment sharded over
+        tp keeps the rank's slice."""
+        want: list = [()] if "count" in fresh else []
+        for m in self._MOMENTS[self.name]:
+            want.extend(_whole_shape(t.shape, self._moment_axis(m, i), self.mesh)
+                        for i, t in enumerate(fresh[m]))
+        want.append(())
         if len(want) != len(saved_leaves):
             raise ValueError(
                 f"train_state has {len(saved_leaves)} optimizer leaves but the "
                 f"current optimizer expects {len(want)} — optimizer config "
                 "changed since the state was saved; restart without --resume.")
         for i, (ref, new) in enumerate(zip(want, saved_leaves)):
-            if tuple(np.shape(ref)) != tuple(np.shape(new)):
+            if tuple(ref) != tuple(np.shape(new)):
                 raise ValueError(
                     f"train_state optimizer leaf {i} has shape {np.shape(new)} but "
-                    f"the current optimizer expects {np.shape(ref)} — "
+                    f"the current optimizer expects {tuple(ref)} — "
                     "model/optimizer config changed; restart without --resume.")
         it = iter(saved_leaves)
         out: Dict = {}
         if "count" in fresh:
             out["count"] = int(next(it))
         for m in self._MOMENTS[self.name]:
-            out[m] = [torch.from_numpy(np.array(next(it), np.float32)).to(t.device)
-                      for t in fresh[m]]
+            out[m] = [shard_tensor(torch.from_numpy(np.array(next(it), np.float32)),
+                                   self._moment_axis(m, i), self.mesh)
+                      .contiguous().to(t.device) for i, t in enumerate(fresh[m])]
         out["sched_count"] = int(next(it))
         return out
 
 
-def build_optimizer(config: dict, total_steps: int) -> Optimizer:
+def leaf_axes(params: dict) -> list:
+    """Each leaf's tp axis under `param_shardings` (None: replicated), in
+    tree_leaves order."""
+    return [shard_axis(spec_for("/".join(p), v.dim())) for p, v in tree_leaves(params)]
+
+
+def build_optimizer(config: dict, total_steps: int, params: Optional[dict] = None,
+                    mesh=None) -> Optimizer:
+    """The run's optimizer. Under a tp mesh, `params` (the rank's shards)
+    fixes each leaf's tp axis and whole shape."""
+    axes = shapes = None
+    if mesh is not None and mesh.tp_group is not None:
+        axes = leaf_axes(params)
+        shapes = [_whole_shape(v.shape, a, mesh) for (_, v), a in zip(tree_leaves(params), axes)]
     return Optimizer(config["optimizer"], build_schedule(config, total_steps),
                      float(config.get("weight_decay", 0.0)),
-                     float(config.get("gradient_clip_val") or 0.0))
+                     float(config.get("gradient_clip_val") or 0.0), mesh, axes, shapes)

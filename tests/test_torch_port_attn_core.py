@@ -158,9 +158,13 @@ def test_function_saves_only_the_primals_and_casts_the_gradient():
 
 
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take():
-    q = torch.zeros(2, 10, 16)
-    with pytest.raises(ValueError, match="8 heads"):
-        tcore._check(2, q, q, q)
+    q = torch.zeros(2, 10, 24)
+    with pytest.raises(ValueError, match="3 heads"):  # d_k 8, but 3 heads is no packing
+        tcore._check(3, q, q, q)
+    q = torch.zeros(2, 10, 32)
+    with pytest.raises(ValueError, match="8 heads"):  # 8 heads need D = 64
+        tcore._check(8, q, q, q)
+    tcore._check(4, q, q, q)  # a tp = 2 rank's 4 heads at D = 32
     x = torch.zeros(2, 10, 64)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tcore._check(8, x.double())

@@ -1,7 +1,7 @@
 """The help texts of the port's command line say what the port does today:
 POD5 output, the packed wire formats (`--wire-format auto` starts at the ULP
-tier, as in the JAX package), --num-shards and --trace-dir are ported;
-several devices in one process are not."""
+tier, as in the JAX package), --num-shards and --trace-dir are ported, and
+so are several devices: in one process, and over processes with `train --tp`."""
 
 from __future__ import annotations
 
@@ -36,7 +36,9 @@ def test_main_help_lists_what_is_and_is_not_ported():
     assert not _has(text, "are not ported yet")
     assert _has(text, "--wire-format auto starts at the ULP tier")
     assert _has(text, "--num-shards and --trace-dir work")
-    assert _has(text, "Several devices in one process are not ported")
+    assert not _has(text, "Several devices in one process are not ported")  # the stale one
+    assert _has(text, "Several devices work as in the JAX package")
+    assert _has(text, "train data- and tensor-parallel (`train --tp`)")
 
 
 def test_predict_help_and_the_hidden_wire_format_option():

@@ -187,9 +187,11 @@ def test_optimizer_matches_optax(name, wd, factored):
 
 
 def test_unported_training_options_raise(tmp_path):
-    """Only tensor parallelism (ROADMAP A12) is left unported."""
+    """Every training option is ported (tensor parallelism since ROADMAP A12);
+    what is left to raise is the JAX package's own refusal: a tp degree that
+    does not divide the world (one process here), a ValueError."""
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="does not divide the device count 1"):
         tloop.train_run(str(tmp_path), None, dict(cfg, tensor_parallel=2), None, device=CPU)
 
 
@@ -224,7 +226,7 @@ def test_train_blocks_rung_by_stack(monkeypatch, mode, L, whole_block, want):
     encoder_forward (`use_core = ... in ("core", "block")`)."""
     seen = []
 
-    def plain(block, h, n_head, dropout_rate, dropout_key, packed_core):
+    def plain(block, h, n_head, dropout_rate, dropout_key, packed_core, mesh=None):
         seen.append("core" if packed_core else "plain")
         return h
 
