@@ -178,7 +178,39 @@ Phases (any failure raises and the script exits non-zero):
      rank's core launches exact, every logged loss within 1e-2 relative of
      the one-process run's (bf16), and its
      train_state.npz holding whole leaves in optax's order (the count and
-     shapes of the one-process file of (b)).
+     shapes of the one-process file of (b));
+ 17. the run loop's host threads on the card: (a) phase 4's run again, its
+     records equal one for one to phase 4's, seq2squiggle-h2d, -fetch and
+     -decode seen alive during it (from a wrapped iter_batches) and no
+     seq2squiggle-* thread after it, stats["timers"] holding h2d_cpu,
+     dispatch_cpu and d2h_wait, 4 fused-block launches a batch; (b) the same
+     run with the decode slowed (its first batch held PIPELINE_HOLD_S, then
+     PIPELINE_SLOW_S a batch), at the run's queue depths, where all 6 batches
+     go in, and with them cut to 1, where they fill: records equal to phase
+     4's, the batches in flight past the one the decode holds exactly the two
+     queues' depths plus the batch the fetch thread holds and the one
+     launched (or all the others), the peak of allocated device memory
+     beside (a)'s; (c) phase 14's step-down run (--noise-std 20 from
+     8 bits) with the decode slowed: more than four batches launched at 8
+     bits (in flight when it steps down), records equal to its raw run's,
+     three raw recomputes logged for each tier it leaves, then the step-down; (d) phase 16(a)'s two shards of the card:
+     each shard launched from its own thread (seq2squiggle-shard0_0 and
+     -shard1_0) on its own stream, not the default one (handles recorded by
+     a wrapped predict_step), records equal to phase 4's, 8 one-block
+     launches a batch, and kSamples/s against one device in 3 alternating
+     rounds; each run's kSamples/s and stage timers per batch printed beside
+     the card's name and power limit.
+
+Beside the kernels (phases 2, 8, 11, 12), one library call that computes the
+same function is timed and held against the plain version at phase 2's bf16
+bar, not required to meet it, with a note of what ran
+(`aten::_transformer_encoder_layer_fwd` or the unfused layer): a
+torch.nn.TransformerEncoderLayer holding the block's weights (the fused
+block at 1024 x 16 and 1024 x 250, and at 2048 x 250 for P1's b and c and
+P2's d), two of them in a torch.nn.TransformerEncoder (the pair), and the
+layer's forward and backward under autograd at (512, 250, 64) (the
+whole-block training kernels at unit dropout scales). Nothing in the port
+calls them.
 
 The line before the last is a JSON object with each kernel's route, source,
 launches on its main path (for the profiling kernels: in their timing
@@ -191,6 +223,7 @@ the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import socket
@@ -385,6 +418,52 @@ def hold_block(what, got, ref, dtype) -> float:
     return err
 
 
+def library_layer(block, dtype, dev):
+    """torch.nn.TransformerEncoderLayer holding `block`'s weights: the same
+    post-LN block (q/k/v with biases, 1/sqrt(d_k), fc, LN1(o + x), the ReLU
+    FFN, LN2(f + h1)) at dropout 0. Timed beside the kernels, used nowhere in
+    the port."""
+    from seq2squiggle_tpu_torch.ops.fft_block import WEIGHT_FIELDS, _get
+
+    (wq, bq, wk, bk, wv, bv, wf, bf, ln1s, ln1b,
+     w1, b1, w2, b2, ln2s, ln2b) = (_get(block, f).detach().float().cpu() for f in WEIGHT_FIELDS)
+    layer = torch.nn.TransformerEncoderLayer(
+        64, 8, 256, dropout=0.0, activation="relu", batch_first=True, norm_first=False,
+        layer_norm_eps=1e-5)
+    with torch.no_grad():
+        for param, value in (
+                (layer.self_attn.in_proj_weight, torch.cat([wq.T, wk.T, wv.T])),
+                (layer.self_attn.in_proj_bias, torch.cat([bq, bk, bv])),
+                (layer.self_attn.out_proj.weight, wf.T), (layer.self_attn.out_proj.bias, bf),
+                (layer.norm1.weight, ln1s), (layer.norm1.bias, ln1b),
+                (layer.linear1.weight, w1.T), (layer.linear1.bias, b1),
+                (layer.linear2.weight, w2.T), (layer.linear2.bias, b2),
+                (layer.norm2.weight, ln2s), (layer.norm2.bias, ln2b)):
+            param.copy_(value.reshape(param.shape))
+    return layer.to(dev, dtype).eval()
+
+
+def hold_library(what, module, x, ref):
+    """One library call (`module(x)` under inference mode) against the plain
+    version at phase 2's bf16 bar (4 bf16 ULPs of max(1, max|plain|)), not
+    required to meet it; its median time; and whether the fused op
+    (aten::_transformer_encoder_layer_fwd) ran or the layer's unfused path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        err = (module(x).float() - ref.float()).abs().max().item()
+        ms = median_ms(lambda: module(x))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            module(x)
+    fused = any(e.key == "aten::_transformer_encoder_layer_fwd" for e in prof.key_averages())
+    got = {"ms": ms, "max_abs_err": err, "within_bar": err <= bf16_tol(ref),
+           "ran": "aten::_transformer_encoder_layer_fwd" if fused else "the unfused layer"}
+    log(f"library {what}: {ms:.3f} ms, max|err| against plain {err:.3g} "
+        f"({'within' if got['within_bar'] else 'OUTSIDE'} phase 2's bf16 bar), ran "
+        f"{got['ran']}")
+    return got
+
+
 def phase_kernel(params_by_dtype, dev):
     from seq2squiggle_tpu_torch.ops.fft_block import (
         fused_fft_block, fused_fft_block_reference,
@@ -392,7 +471,7 @@ def phase_kernel(params_by_dtype, dev):
 
     gen = torch.Generator().manual_seed(SEED)
     worst_bf16 = 0.0
-    times = {}
+    times, library = {}, {}
     for dtype, params in params_by_dtype.items():
         name = str(dtype)[6:]
         block = params["decoder"]["blocks"][0]
@@ -411,6 +490,9 @@ def phase_kernel(params_by_dtype, dev):
                 times[(dtype, L)] = (k_ms, p_ms)
                 msg += f", kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
             log(msg)
+            if B == BATCH and dtype == torch.bfloat16:
+                library[L] = hold_library(f"layer bf16 {B}x{L}",
+                                          library_layer(block, dtype, dev), x, ref)
         top = ceiling(dtype)
         errs = []
         for B, L in [(3, L) for L in EDGE_LENGTHS] + [(16, top)]:
@@ -425,7 +507,7 @@ def phase_kernel(params_by_dtype, dev):
         out = fused_fft_block(underflow_input(gen).to(dev, dtype), block, 8)
         check(bool(torch.isfinite(out).all()), f"underflow input gave non-finite {dtype}")
         log(f"underflow input {name}: finite")
-    return worst_bf16, times
+    return worst_bf16, times, library
 
 
 def digests(dev) -> dict:
@@ -693,6 +775,15 @@ def _tier_runs_match(what, got, want, exact: bool) -> float:
     return share
 
 
+def timers_per_batch(stats) -> str:
+    """A run's stage timers (SEQ2SQUIGGLE_TPU_TIMERS=1) in ms per batch."""
+    t = stats["timers"]
+    n = sum(v for k, v in t.items() if k.startswith("n_t"))
+    per = {k: round(v / n * 1e3, 3) for k, v in t.items()
+           if not k.startswith("n_t") and isinstance(v, float)}
+    return f"ms per batch over {n} batches: {json.dumps(per)}"
+
+
 def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100):
     """Phase 14, the wire formats on the card: the packers against the CPU;
     phase 4's run (auto: the ULP tier) against raw with and without noise;
@@ -770,12 +861,7 @@ def phase_wire(host_params, dev, main_stats, main_recs, smi, n_reads: int = 100)
         f"recomputes and {len(steps)} step-downs, settled on {stats8['wire_bits']} bits with "
         f"records equal to raw")
     for name in ("auto", "raw"):
-        stats = runs[name][0]
-        t = stats["timers"]
-        n = sum(v for k, v in t.items() if k.startswith("n_t"))
-        per = {k: round(v / n * 1e3, 3) for k, v in t.items()
-               if not k.startswith("n_t") and isinstance(v, float)}
-        log(f"stage timers at {name}, ms per batch over {n} batches: {json.dumps(per)} [{smi}]")
+        log(f"stage timers at {name}, {timers_per_batch(runs[name][0])} [{smi}]")
     return {name: stats["ksamples_per_s"] for name, (stats, _) in runs.items()}
 
 
@@ -819,6 +905,14 @@ def phase_pair(params_by_dtype, dev):
                     result = dict(times, err=err)
                     msg += "; ms " + ", ".join(f"{k} {t:.3f}" for k, t in times.items())
                 log(msg)
+                if B == BATCH and packed and dtype == torch.bfloat16:
+                    pair_layers = torch.nn.TransformerEncoder(
+                        library_layer(b0, dtype, dev), 2, enable_nested_tensor=False)
+                    pair_layers.layers = torch.nn.ModuleList(
+                        [library_layer(b, dtype, dev) for b in (b0, b1)])
+                    result["library"] = hold_library(
+                        f"two-layer encoder bf16 {B}x{L}", pair_layers.eval(), x,
+                        fb.fused_fft_block_pair_reference(x, b0, b1, 8, packed))
         for B, L, packed in ((BATCH, 250, False), (BATCH, 16, True), (3, 250, False),
                              (3, 16, True)):
             x = torch.randn(B, L, 64, generator=gen).to(dev, dtype)
@@ -932,6 +1026,13 @@ def phase_variants(params_by_dtype, dev):
         log(f"variants vs plain {name} {B}x{L}: c and b bit-equal to the fused block's exact "
             "form; max|err| " + ", ".join(errs))
 
+    # B2's function as one library call at the timing shape (P1's b and c, P2's d)
+    block = params_by_dtype[bf16]["decoder"]["blocks"][0]
+    x = torch.randn(*timing, 64, generator=torch.Generator().manual_seed(SEED + 1)).to(dev, bf16)
+    library = hold_library(f"layer bf16 {timing[0]}x{timing[1]} (P1 b and c, P2 d)",
+                           library_layer(block, bf16, dev), x,
+                           fb.fused_fft_block_reference(x, block, 8))
+
     # the timing scripts: launches counted over their timed rounds only
     x, fns, _ = script.setup(cuda_cores=False)
     tv.launches_abc = tv.launches_d = tv.launches_parts = 0
@@ -960,6 +1061,7 @@ def phase_variants(params_by_dtype, dev):
                         "plain_ms": cut_times[slowest][1],
                         "ms_by_cut": {c: t[0] for c, t in cut_times.items()},
                         "plain_ms_by_cut": {c: t[1] for c, t in cut_times.items()}}
+    result["library"] = library
     return result, prof, cuts
 
 
@@ -1049,6 +1151,36 @@ def phase_core_kernels(dev):
               f"core kernels: underflow input gave non-finite values ({name})")
         log(f"core underflow input {name}: forward and gradients finite")
     return result
+
+
+def library_train(block, x, g, weights, dev) -> dict:
+    """B3's library call: the layer's forward and its backward (gx and the
+    weight gradients) under autograd at dropout 0, which is the whole-block
+    kernels at unit dropout scales; the forward held against the plain
+    version at phase 2's bf16 bar and gx at phase 8's (8 bf16 ULPs of
+    max(1, max|plain|)), not required to meet them."""
+    from seq2squiggle_tpu_torch.ops import block_train as bt
+
+    layer = library_layer(block, x.dtype, dev)
+    xg = x.detach().requires_grad_()
+    out = layer(xg)
+    ref = bt.fused_block_train_reference(x, weights, None, None, 8)
+    rx, _ = bt.fused_block_train_backward_reference(x, weights, None, None, g, 8)
+    gx = torch.autograd.grad(out, xg, g, retain_graph=True)[0]
+    f_err = (out.float() - ref.float()).abs().max().item()
+    x_err = (gx.float() - rx.float()).abs().max().item()
+    params = [xg, *layer.parameters()]
+    got = {"fwd_library": median_ms(lambda: layer(xg)),
+           "bwd_library": median_ms(lambda: torch.autograd.grad(out, params, g,
+                                                                retain_graph=True)),
+           "fwd_library_err": f_err, "bwd_library_err": x_err,
+           "library_within_bar": (f_err <= bf16_tol(ref)
+                                  and x_err <= 8 * 2.0 ** -8 * max(1.0, rx.float().abs().max().item()))}
+    log(f"library layer bf16 {tuple(x.shape)} under autograd (B3's): forward "
+        f"{got['fwd_library']:.3f} ms, backward {got['bwd_library']:.3f} ms; max|err| against "
+        f"plain: forward {f_err:.3g}, gx {x_err:.3g} "
+        f"({'within' if got['library_within_bar'] else 'OUTSIDE'} the bars)")
+    return got
 
 
 def phase_block_kernels(dev):
@@ -1156,6 +1288,8 @@ def phase_block_kernels(dev):
             result[dtype] = dict(times, fwd_err=f_err, bwd_err=x_err)
             log(f"block kernels {name} {B}x{L} dropout on, ms: "
                 + ", ".join(f"{k} {t:.3f}" for k, t in times.items()))
+            if dtype == torch.bfloat16:
+                result[dtype].update(library_train(block, x, g, weights, dev))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
@@ -1960,6 +2094,189 @@ def phase_parallel(dev, main_recs):
     return core4
 
 
+# phase 17's slowed decode: its first batch held long enough for the dispatch
+# loop (~0.15 s a batch) to fill the queues behind it, then each batch slowed
+PIPELINE_HOLD_S = 2.0
+PIPELINE_SLOW_S = 0.03
+
+
+def _stage_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate() if t.name.startswith("seq2squiggle-"))
+
+
+def phase_pipeline(dev, main_recs, smi) -> dict:
+    """Phase 17: the run loop's host threads and the per-shard launching
+    threads on the card. Returns what it measured."""
+    import threading
+
+    from seq2squiggle_tpu_torch.runtime import predict as tpredict
+    from seq2squiggle_tpu_torch.runtime import simulate as tsim
+
+    t_phase = time.perf_counter()
+    stages = {"seq2squiggle-h2d", "seq2squiggle-fetch", "seq2squiggle-decode"}
+    got = {}
+
+    def report(what, stats):
+        log(f"phase 17 {what}: {stats['samples']} samples in {stats['seconds']:.3f} s "
+            f"({stats['ksamples_per_s']:.1f} kSamples/s); stage timers "
+            f"{timers_per_batch(stats)} [{smi}]")
+
+    def slowed(depths=None, **run):
+        """A run whose decode holds its first batch PIPELINE_HOLD_S and
+        sleeps PIPELINE_SLOW_S a batch, counting how far the dispatch loop
+        runs ahead of it (batches launched, this one included, less those
+        the decode has started) and the tier of every batch it launched."""
+        unframe, step = tsim.unframe_wire, tsim.predict_step_sharded
+        decoded, ahead, tiers = [], [], []
+
+        def slow_unframe(*args, **kw):
+            if threading.current_thread().name == "seq2squiggle-decode":
+                decoded.append(1)
+            time.sleep(PIPELINE_HOLD_S if decoded == [1] else PIPELINE_SLOW_S)
+            return unframe(*args, **kw)
+
+        def counted(*args, **kw):
+            if threading.current_thread().name != "seq2squiggle-decode":  # not a recompute
+                tiers.append(kw["knobs"].wire_bits)
+                ahead.append(len(tiers) - len(decoded))
+            return step(*args, **kw)
+
+        patches = [mock.patch.object(tsim, "unframe_wire", slow_unframe),
+                   mock.patch.object(tsim, "predict_step_sharded", counted)]
+        if depths:
+            patches += [mock.patch.object(tsim, "H2D_DEPTH", depths[0]),
+                        mock.patch.object(tsim, "PIPELINE_DEPTH", depths[1])]
+        torch.cuda.reset_peak_memory_stats(dev)
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            result = _predict_run(dev, "out.blow5", **run)
+        check(not _stage_threads(), f"threads left after a slowed run: {_stage_threads()}")
+        return result, max(ahead), tiers, torch.cuda.max_memory_allocated(dev)
+
+    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+    try:
+        # -- (a) phase 4's run: the named threads, the timers, the launches
+        seen = set()
+        batches = tsim.iter_batches
+
+        def watched(*args, **kw):
+            for batch in batches(*args, **kw):
+                seen.update(t.name for t in threading.enumerate())
+                yield batch
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        with mock.patch.object(tsim, "iter_batches", watched):
+            stats, launches, _, recs = _predict_run(dev, "out.blow5", 100)
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_batches = math.ceil(stats["chunks"] / BATCH)
+        check(stages <= seen, f"(a): threads seen during the run {sorted(seen)}")
+        check(not _stage_threads(), f"(a): threads left after the run: {_stage_threads()}")
+        check({"h2d_cpu", "dispatch_cpu", "d2h_wait"} <= set(stats["timers"]),
+              f"(a): timers {sorted(stats['timers'])}")
+        check(launches == 4 * n_batches, f"(a): {launches} launches for {n_batches} batches")
+        _tier_runs_match("phase 17 (a) against phase 4", recs, main_recs, exact=True)
+        log(f"phase 17 (a): records equal to phase 4's; threads seen {sorted(seen & stages)}, "
+            f"none left after; fused_fft_block launches {launches} for {n_batches} batches; "
+            f"peak device memory allocated {peak / 2**20:.1f} MiB")
+        report("(a)", stats)
+        got["a"] = {"ksamples_per_s": stats["ksamples_per_s"], "peak_mib": peak / 2**20}
+
+        # -- (b) the decode slowed: at the run's queue depths, where the 6
+        # batches all go in, and with the depths cut to 1, where the queues fill
+        for depths in (None, (1, 1)):
+            (stats, _, _, recs), ahead, _, peak_b = slowed(depths, n_reads=100)
+            # the fetch and decode queues, the batch the fetch thread holds, the one
+            # launched; or every batch but the one the decode holds
+            limit = 2 * (depths or (0, tsim.PIPELINE_DEPTH))[1] + 2
+            what = f"(b) depths {depths or (tsim.H2D_DEPTH, tsim.PIPELINE_DEPTH)}"
+            want = min(limit, n_batches - 1)
+            check(ahead == want, f"{what}: {ahead} batches in flight, want {want}")
+            _tier_runs_match(f"phase 17 {what} against phase 4", recs, main_recs, exact=True)
+            log(f"phase 17 {what}, decode held {PIPELINE_HOLD_S} s, then slowed "
+                f"{PIPELINE_SLOW_S} s a batch: records equal to phase 4's; {ahead} batches in "
+                f"flight at most (the limit {limit}, {n_batches} batches); peak device memory "
+                f"allocated {peak_b / 2**20:.1f} MiB against (a)'s {peak / 2**20:.1f}")
+            report(what, stats)
+            got[f"b{'' if depths is None else '_cut'}"] = {
+                "max_in_flight": ahead, "limit": limit, "peak_mib": peak_b / 2**20}
+
+        # -- (c) phase 14's step-down run with the decode slowed
+        ladder = dict(n_reads=30, noise_std=20.0, predict_batch_size=256)
+        _, _, _, raw_recs = _predict_run(dev, "raw.blow5", wire_format="raw", **ladder)
+        warnings = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = lambda record: warnings.append(record.getMessage())
+        port_log = logging.getLogger("seq2squiggle_tpu_torch")
+        port_log.addHandler(handler)
+        try:
+            (stats, _, _, recs), ahead, tiers, _ = slowed(wire_format="8", **ladder)
+        finally:
+            port_log.removeHandler(handler)
+        steps = [w for w in warnings if "downgrading wire format to" in w]
+        recomputes = sum("recomputed this batch raw" in w for w in warnings)
+        check(stats["wire_bits"] in (12, 16) and steps
+              and len(steps) == (1 if stats["wire_bits"] == 12 else 2)
+              and recomputes == 3 * len(steps),
+              f"(c): {len(steps)} step-downs and {recomputes} raw recomputes logged: {steps}")
+        _tier_runs_match("phase 17 (c) against its raw run", recs, raw_recs, exact=True)
+        by_tier = {b: tiers.count(b) for b in sorted(set(tiers))}
+        check(by_tier.get(8, 0) > 4, f"(c): batches launched by tier {by_tier}: no more than "
+              "the four the step-down counts were in flight at 8 bits")
+        log(f"phase 17 (c): the ladder from 8 bits with the decode slowed logged {recomputes} "
+            f"raw recomputes and {len(steps)} step-downs, settled on {stats['wire_bits']} bits, "
+            f"records equal to raw; batches launched by tier {by_tier} (at most {ahead} in "
+            "flight)")
+        report("(c)", stats)
+        got["c"] = {"batches_by_tier": by_tier, "max_in_flight": ahead}
+
+        # -- (d) two shards of the card: a thread and a stream each
+        calls = []
+        inner = tpredict.predict_step
+
+        def watched_step(*args, **kw):
+            calls.append((threading.current_thread().name,
+                          torch.cuda.current_stream(dev).cuda_stream))
+            return inner(*args, **kw)
+
+        with mock.patch.object(tpredict, "predict_step", watched_step):
+            stats, launches, _, recs = _predict_run(dev, "out.blow5", 100, device=[dev, dev])
+        threads = {name: {stream for n, stream in calls if n == name} for name, _ in calls}
+        default = torch.cuda.default_stream(dev).cuda_stream
+        check(set(threads) == {"seq2squiggle-shard0_0", "seq2squiggle-shard1_0"}
+              and all(len(s) == 1 for s in threads.values())
+              and len(set().union(*threads.values()) - {default}) == 2,
+              f"(d): shard threads and streams {threads}")
+        check(launches == 8 * n_batches, f"(d): {launches} launches for {n_batches} batches")
+        _tier_runs_match("phase 17 (d) against phase 4", recs, main_recs, exact=True)
+        log(f"phase 17 (d): each shard launched from its own thread on its own stream "
+            f"({ {n: hex(next(iter(s))) for n, s in threads.items()} }); records equal to "
+            f"phase 4's; fused_fft_block launches {launches} (8 a batch)")
+        rates = {"one device": [], "two shards": []}
+        for r in range(3):
+            order = ("one device", "two shards") if r % 2 == 0 else ("two shards", "one device")
+            for name in order:
+                devices = [dev] if name == "one device" else [dev, dev]
+                stats, launches, _, recs = _predict_run(dev, "out.blow5", 100, device=devices)
+                _tier_runs_match(f"phase 17 (d) {name} against phase 4", recs, main_recs,
+                                 exact=True)
+                check(launches == 4 * len(devices) * n_batches, f"(d) {name}: {launches} launches")
+                rates[name].append(stats["ksamples_per_s"])
+                report(f"(d) round {r} {name}", stats)
+        one, two = (statistics.median(v) for v in rates.values())
+        log(f"phase 17 (d): kSamples/s in 3 alternating rounds, one device {rates['one device']} "
+            f"(median {one:.1f}), two shards {rates['two shards']} (median {two:.1f}, "
+            f"{100 * (two / one - 1):+.1f} %) [{smi}]")
+        got["d"] = rates
+    finally:
+        del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    log("phase 17 summary: " + json.dumps(got))
+    return got
+
+
 def main() -> int:
     if not (ROOT / "seq2squiggle_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1987,7 +2304,7 @@ def main() -> int:
     host_params, _ = load_checkpoint(str(R10))
     params = {dt: fft_model.to_device(host_params, dev, dt)
               for dt in (torch.bfloat16, torch.float32)}
-    worst_bf16, times = phase_kernel(params, dev)
+    worst_bf16, times, library = phase_kernel(params, dev)
     log(f"digests: {json.dumps(digests(dev))}")
     phase_step(host_params, dev)
     launches, _, recs, main_stats = phase_main_path(dev, pair=False)
@@ -2010,6 +2327,7 @@ def main() -> int:
     phase_wire(host_params, dev, main_stats, recs, smi)
     phase_train_rest(dev, smi, pngs, warnings)
     core4 = phase_parallel(dev, recs)
+    phase_pipeline(dev, recs, smi)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
@@ -2029,6 +2347,10 @@ def main() -> int:
                 "bound_by": core4[f"{direction}_bound"][1],
                 "launches_per_rank": core4[f"launches_{direction}"],
                 "shape": f"bf16 {TRAIN_BATCH}x250x32"}}
+        elif name.startswith("fused_block_train"):  # the layer under autograd
+            extra = {"library": {"call": "nn.TransformerEncoderLayer under autograd",
+                                 "max_abs_err": got[f"{direction}_library_err"],
+                                 "within_bar": got["library_within_bar"]}}
         return {"name": name, "route": "cuda",
                 "source": f"seq2squiggle_tpu_torch/csrc/{source}",
                 "replaces": f"seq2squiggle_tpu/ops/pallas/{replaces}", "launches": launches,
@@ -2042,12 +2364,15 @@ def main() -> int:
 
     def variant_entry(group, replaces, names):
         got = variants[group]
+        # b, c (P1) and d (P2) compute B2's function; the stages (P3) have no library call
+        lib = variants["library"] if group in ("abc", "d") else None
         return {"ms_per_block_interleaved": {n: variant_profile["ms"][n] for n in names},
                 "name": f"fused_{group}", "route": "cuda",
                 "source": "seq2squiggle_tpu_torch/csrc/fft_block_variants.cu",
                 "replaces": f"scripts/profiling/{replaces}", "launches": got["launches"],
                 "max_abs_err": got["err"], "ms": got["ms"], "plain_ms": got["plain_ms"],
-                "bound_ms": variant_bound[0], "bound_by": variant_bound[1], "library_ms": None}
+                "bound_ms": variant_bound[0], "bound_by": variant_bound[1],
+                "library_ms": lib and lib["ms"], "library": lib}
 
     def ablate_entry():
         got = variants["ablate"]
@@ -2073,7 +2398,8 @@ def main() -> int:
         "plain_ms": p_ms,
         "bound_ms": 2 * sum(b for b, _ in fused_bound),
         "bound_by": fused_bound[1][1],
-        "library_ms": None,
+        "library_ms": 2 * (library[16]["ms"] + library[250]["ms"]),
+        "library_by_shape": {f"bf16 {BATCH}x{L}x64": got for L, got in library.items()},
         "ms_by_shape": {f"{str(dt)[6:]} {BATCH}x{L}x64": {"ms": k, "plain_ms": p}
                         for (dt, L), (k, p) in times.items()},
     },
@@ -2089,7 +2415,8 @@ def main() -> int:
          "source": "seq2squiggle_tpu_torch/csrc/fft_block.cu",
          "replaces": "seq2squiggle_tpu/ops/pallas/fft_block.py:466", "launches": pair_launches,
          "max_abs_err": pair["err"], "ms": pair["pair"], "plain_ms": pair["plain"],
-         "bound_ms": pair_bound[0], "bound_by": pair_bound[1], "library_ms": None,
+         "bound_ms": pair_bound[0], "bound_by": pair_bound[1],
+         "library_ms": pair["library"]["ms"], "library": pair["library"],
          "two_launches_ms": pair["two_launches"]},
         variant_entry("abc", "profile_abc.py:130", ("a", "b", "c")),
         variant_entry("d", "profile_d.py:95", ("b", "d", "block exact", "block shift")),

@@ -2,12 +2,16 @@
 default --wire-format auto, the ULP tier in bf16) or, with --train, the
 train step.
 
-    python scripts/profile_torch_port.py [--reads 300] [--pair] [--wire] [--out-dir build/profile]
+    python scripts/profile_torch_port.py [--reads 300] [--pair] [--wire] [--shards N]
+        [--out-dir build/profile]
+    python scripts/profile_torch_port.py --against CHECKOUT [--rounds 3] [--shards N]
     python scripts/profile_torch_port.py --train [--out-dir build/profile]
 
 Runs in one process, with the committed R10 weights, the default bf16 config
 and batch 1024, over a synthetic 200 kb genome made from numpy seed 7 in
-reference mode (the input of chip_smoke.py's main path):
+reference mode (the input of chip_smoke.py's main path), on cuda:0, or on
+--shards N shards of cuda:0 (each batch split N ways, each shard launched
+from its own thread); it prints the devices it ran on:
 
   1. a warm-up run of 30 reads (kernel build, CUDA context, allocator);
   2. unprofiled runs of --reads and of 1000 reads: wall seconds, kSamples/s;
@@ -34,6 +38,18 @@ and 4 are repeated at raw, so that both tiers' rates, launches per batch,
 device-busy shares and host functions come from one process on one card;
 those go to <out-dir>/profile_raw.txt and <out-dir>/cprofile_raw.txt.
 
+With --against CHECKOUT (a `git archive` of another commit, unpacked): this
+tree's predict run and that checkout's alternate in subprocess rounds on the
+same input (this, other; other, this; ...), each round a fresh process per
+tree with a 30-read warm-up and then --reads at auto and at raw (in turns),
+the stage timers on; the first round also profiles one auto run of each
+tree. Reported per tree and tier: kSamples/s of every round, their median
+and spread (max - min), the device idle share and cudaLaunchKernel calls a
+batch (the profiled run), and CPU seconds a batch by thread: the stage
+timers' *_cpu (the producer's h2d_cpu, the dispatch loop's dispatch_cpu,
+the decode thread's decode_cpu + export_cpu, the writer's), the shard
+threads' (around each predict_step), and the whole process's.
+
 With --train: the default config at full width (bf16, batch 512, Adam,
 dropout on) on chip_smoke.py's synthetic chunks; 5 warm-up steps, then 10
 steps each at `pallas_train: block` (what the default `auto` picks), `core`
@@ -58,15 +74,21 @@ import os
 import pathlib
 import pstats
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+# --tree TREE: import the port from another checkout (a child of --against)
+TREE = (pathlib.Path(sys.argv[sys.argv.index("--tree") + 1]).resolve() if "--tree" in sys.argv
+        else ROOT)
+sys.path.insert(0, str(TREE))
 
 from seq2squiggle_tpu_torch.config import load_config  # noqa: E402
 from seq2squiggle_tpu_torch.ops import fft_block  # noqa: E402
@@ -78,7 +100,7 @@ BATCH = 1024
 
 
 def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False,
-        wire: str = "auto") -> dict:
+        wire: str = "auto", shards: int = 1) -> dict:
     return simulate_run(
         config=dict(load_config(None), pallas_pair=pair), saved_weights=str(R10),
         fasta=str(fasta),
@@ -86,7 +108,7 @@ def run(fasta: pathlib.Path, out: pathlib.Path, n_reads: int, pair: bool = False
         profile="dna-r10-prom", dwell_mean=None, dwell_std=0.0, noise_std=2.0,
         noise_sampling=True, duration_sampling=True, distr="expon",
         predict_batch_size=BATCH, export_every_n_samples=1_000_000, seed=SEED,
-        show_progress=False, wire_format=wire, device=torch.device("cuda", 0),
+        show_progress=False, wire_format=wire, device=[torch.device("cuda", 0)] * shards,
     )
 
 
@@ -101,11 +123,13 @@ def _union_us(intervals) -> float:
 
 
 def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False,
-                wire: str = "auto") -> dict:
+                wire: str = "auto", shards: int = 1) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats = run(fasta, out, n_reads, pair, wire)
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=every_thread) as prof:
+        stats = run(fasta, out, n_reads, pair, wire, shards)
     torch.cuda.synchronize()
     avg = prof.key_averages()
 
@@ -144,10 +168,11 @@ def profile_run(fasta, out, n_reads, out_dir: pathlib.Path, pair: bool = False,
     }
 
 
-def cprofile_run(fasta, out, n_reads, out_dir: pathlib.Path, wire: str = "auto") -> dict:
+def cprofile_run(fasta, out, n_reads, out_dir: pathlib.Path, wire: str = "auto",
+                 shards: int = 1) -> dict:
     prof = cProfile.Profile()
     prof.enable()
-    stats = run(fasta, out, n_reads, wire=wire)
+    stats = run(fasta, out, n_reads, wire=wire, shards=shards)
     prof.disable()
     text = io.StringIO()
     pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(40)
@@ -155,9 +180,91 @@ def cprofile_run(fasta, out, n_reads, out_dir: pathlib.Path, wire: str = "auto")
     return {"wall_s": stats["seconds"]}
 
 
-def train_profile(out_dir: pathlib.Path) -> dict:
-    import time
+def thread_cpu_tally() -> dict:
+    """Wrap the port's predict_step so that each call adds its thread's CPU
+    seconds (the launches' host side) to a tally by thread name."""
+    from seq2squiggle_tpu_torch.runtime import predict
 
+    tally = {}
+    inner = predict.predict_step
+
+    def timed(*args, **kw):
+        t = time.thread_time()
+        try:
+            return inner(*args, **kw)
+        finally:
+            name = threading.current_thread().name
+            tally[name] = tally.get(name, 0.0) + time.thread_time() - t
+
+    predict.predict_step = timed
+    return tally
+
+
+def child(args, fasta, out, out_dir: pathlib.Path) -> dict:
+    """One --against round of one tree: a warm-up, then one run per tier of
+    --child in that order (and with --profiled one profiled run of the
+    first), stage timers on."""
+    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+    tally = thread_cpu_tally()
+    run(fasta, out, 30, shards=args.shards)
+    result = {"tree": str(TREE), "shards": args.shards}
+    wires = args.child.split(",")
+    for wire in wires:
+        tally.clear()
+        stats = run(fasta, out, args.reads, wire=wire, shards=args.shards)
+        batches = -(-stats["chunks"] // BATCH)
+        cpu = {k: v / batches for k, v in stats["timers"].items() if k.endswith("_cpu")}
+        cpu.update({f"predict_step@{k}": v / batches for k, v in tally.items()})
+        result[wire] = {"ksamples_per_s": stats["ksamples_per_s"], "seconds": stats["seconds"],
+                        "wire_bits": stats["wire_bits"], "batches": batches,
+                        "cpu_s_per_batch": cpu}
+    if args.profiled:
+        got = profile_run(fasta, out, args.reads, out_dir, wire=wires[0], shards=args.shards)
+        result["profiled"] = {k: got[k] for k in ("wire_bits", "wall_s", "device_busy_s",
+                                                  "device_idle_share",
+                                                  "cudaLaunchKernel_per_batch")}
+    return result
+
+
+def against(args, out_dir: pathlib.Path) -> dict:
+    """This tree and --against CHECKOUT in alternating subprocess rounds."""
+    trees = {"this": ROOT, "against": pathlib.Path(args.against).resolve()}
+    rounds = {name: [] for name in trees}
+    for r in range(args.rounds):
+        for name in (list(trees) if r % 2 == 0 else list(trees)[::-1]):
+            cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+                   "--tree", str(trees[name]), "--child", "auto,raw" if r % 2 == 0 else "raw,auto",
+                   "--reads", str(args.reads), "--shards", str(args.shards),
+                   "--out-dir", str(out_dir / name)] + (["--profiled"] if r == 0 else [])
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
+            if proc.returncode:
+                print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"{name}'s round {r} failed")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(f"round {r} {name}:", json.dumps(got), flush=True)
+            rounds[name].append(got)
+    summary = {}
+    for name, runs in rounds.items():
+        for wire in ("auto", "raw"):
+            rates = [g[wire]["ksamples_per_s"] for g in runs]
+            keys = sorted({k for g in runs for k in g[wire]["cpu_s_per_batch"]})
+            summary[f"{name} {wire}"] = {
+                "ksamples_per_s": rates, "median": statistics.median(rates),
+                "spread": max(rates) - min(rates),
+                "median_cpu_s_per_batch": {k: statistics.median(
+                    g[wire]["cpu_s_per_batch"].get(k, 0.0) for g in runs) for k in keys}}
+        summary[f"{name} profiled"] = runs[0]["profiled"]
+    for wire in ("auto", "raw"):
+        this, other = summary[f"this {wire}"]["median"], summary[f"against {wire}"]["median"]
+        print(f"{wire}: this tree {this:.1f} kSamples/s (spread "
+              f"{summary[f'this {wire}']['spread']:.1f}), the other {other:.1f} (spread "
+              f"{summary[f'against {wire}']['spread']:.1f}): {100 * (this / other - 1):+.1f} %",
+              flush=True)
+    return {"trees": {k: str(v) for k, v in trees.items()}, "rounds": args.rounds,
+            "shards": args.shards, "summary": summary}
+
+
+def train_profile(out_dir: pathlib.Path) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
@@ -245,6 +352,14 @@ def main() -> int:
                     help="repeat the steady and the profiled run at --wire-format raw")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the predict path")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="split each batch over this many shards of cuda:0")
+    ap.add_argument("--against", metavar="CHECKOUT",
+                    help="alternate this tree's predict runs with that checkout's")
+    ap.add_argument("--rounds", type=int, default=3, help="--against rounds")
+    ap.add_argument("--tree", help=argparse.SUPPRESS)  # read before the imports
+    ap.add_argument("--child", help=argparse.SUPPRESS)  # one --against round: the tiers
+    ap.add_argument("--profiled", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -255,8 +370,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    devices = [f"cuda:0 ({torch.cuda.get_device_name(0)})"] * args.shards
+    print(card, "; devices", devices, flush=True)
+    result = {"card": card, "devices": devices, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    if args.against:
+        result["against"] = against(args, out_dir)
+        print(json.dumps(result), flush=True)
+        return 0
     if args.train:
         result["train"] = train_profile(out_dir)
         print(json.dumps(result), flush=True)
@@ -267,6 +388,9 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         fasta.write_text(">synthetic\n" + "".join(rng.choice(list("ACGT"), 200_000)) + "\n")
         out = pathlib.Path(tmp) / "out.blow5"
+        if args.child:
+            print(json.dumps(child(args, fasta, out, out_dir)), flush=True)
+            return 0
         runs = [("warm", 30, False, "auto"), ("steady", args.reads, False, "auto")]
         if args.pair:  # in turns, and before a profiler slows the launches
             runs += [("pair_steady", args.reads, True, "auto"),
@@ -282,22 +406,26 @@ def main() -> int:
             if name == "steady_1000":
                 os.environ.pop("SEQ2SQUIGGLE_TPU_TIMERS", None)
             fft_block.launches = fft_block.pair_launches = 0
-            stats = run(fasta, out, n, pair, wire)
+            stats = run(fasta, out, n, pair, wire, args.shards)
             stats["fft_block_launches"] = fft_block.launches
             stats["fft_block_pair_launches"] = fft_block.pair_launches
             print(name, stats, flush=True)
             result[name] = stats
-        result["profiled"] = profile_run(fasta, out, args.reads, out_dir)
+        result["profiled"] = profile_run(fasta, out, args.reads, out_dir, shards=args.shards)
         print("profiled", result["profiled"], flush=True)
-        result["cprofiled"] = cprofile_run(fasta, out, args.reads, out_dir)
+        result["cprofiled"] = cprofile_run(fasta, out, args.reads, out_dir,
+                                           shards=args.shards)
         print("cprofiled", result["cprofiled"], flush=True)
         if args.pair:
-            result["pair_profiled"] = profile_run(fasta, out, args.reads, out_dir, pair=True)
+            result["pair_profiled"] = profile_run(fasta, out, args.reads, out_dir, pair=True,
+                                                  shards=args.shards)
             print("pair profiled", result["pair_profiled"], flush=True)
         if args.wire:
-            result["raw_profiled"] = profile_run(fasta, out, args.reads, out_dir, wire="raw")
+            result["raw_profiled"] = profile_run(fasta, out, args.reads, out_dir, wire="raw",
+                                                 shards=args.shards)
             print("raw profiled", result["raw_profiled"], flush=True)
-            result["raw_cprofiled"] = cprofile_run(fasta, out, args.reads, out_dir, wire="raw")
+            result["raw_cprofiled"] = cprofile_run(fasta, out, args.reads, out_dir, wire="raw",
+                                                   shards=args.shards)
             print("raw cprofiled", result["raw_cprofiled"], flush=True)
     print(json.dumps(result), flush=True)
     return 0

@@ -42,6 +42,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 SHARED_MEMORY_MAX = 232_448
 
 _LOCK = threading.Lock()
+# guards the wrappers' launch counters: shards launch from threads of their own
+COUNT_LOCK = threading.Lock()
 _LIB = None
 build_seconds = None  # wall time of this process's build, for chip_smoke.py
 build_log = ""  # nvcc's output (registers, shared memory, spills)

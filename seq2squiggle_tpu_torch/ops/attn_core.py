@@ -172,7 +172,8 @@ def _launch_fwd(q, k, v, n_head: int) -> torch.Tensor:
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"attention-core forward launch failed: {_build.error_string(err)}")
-    launches_fwd += 1
+    with _build.COUNT_LOCK:
+        launches_fwd += 1
     return out
 
 
@@ -190,7 +191,8 @@ def _launch_bwd(q, k, v, g, n_head: int):
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"attention-core backward launch failed: {_build.error_string(err)}")
-    launches_bwd += 1
+    with _build.COUNT_LOCK:
+        launches_bwd += 1
     return gq, gk, gv
 
 

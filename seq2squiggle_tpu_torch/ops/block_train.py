@@ -284,7 +284,8 @@ def _launch_fwd(x, weights, s_a, s_f, n_head: int, lib=None) -> torch.Tensor:
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"block-train forward launch failed: {_build.error_string(err, lib)}")
-    launches_fwd += 1
+    with _build.COUNT_LOCK:
+        launches_fwd += 1
     return out
 
 
@@ -336,7 +337,8 @@ def _launch_bwd(x, weights, s_a, s_f, g, n_head: int, lib=None, stage_launchers=
             raise RuntimeError(f"block-train backward launch failed: {_build.error_string(err, lib)}")
 
     launch(_ALL_STAGES)
-    launches_bwd += 1
+    with _build.COUNT_LOCK:
+        launches_bwd += 1
     if stage_launchers is not None:
         for i, name in enumerate(BACKWARD_STAGES):
             stage_launchers[name] = lambda bit=1 << i: launch(bit)

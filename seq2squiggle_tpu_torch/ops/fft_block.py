@@ -40,6 +40,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -158,29 +159,31 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # 4 blocks per dtype).
 _PACKED_MAX = 32
 _packed: collections.OrderedDict = collections.OrderedDict()
+_packed_lock = threading.Lock()
 
 
 def _weight_pointers(block: dict, dtype: torch.dtype, device: torch.device):
-    hit = _packed.get(id(block))
-    if hit is not None and hit[0] is block and hit[1] == dtype and hit[2] == device:
+    with _packed_lock:  # shards launch from threads of their own
+        hit = _packed.get(id(block))
+        if hit is not None and hit[0] is block and hit[1] == dtype and hit[2] == device:
+            _packed.move_to_end(id(block))
+            return hit[3]
+        weights = []
+        for path in WEIGHT_FIELDS:
+            w = _get(block, path)
+            want = dtype if path[-1] == "kernel" else torch.float32
+            if w.device != device or w.dtype != want or not w.is_contiguous():
+                raise ValueError(f"block weight {'/'.join(path)} must be a contiguous "
+                                 f"{want} tensor on {device}; got {w.dtype} on {w.device}")
+            weights.append(w)
+        if _get(block, ("ffn", "w_1", "kernel")).shape != (D_MODEL, D_FF):
+            raise ValueError(f"fused_fft_block is built for dff={D_FF}")
+        ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
+        _packed[id(block)] = (block, dtype, device, ptrs)
         _packed.move_to_end(id(block))
-        return hit[3]
-    weights = []
-    for path in WEIGHT_FIELDS:
-        w = _get(block, path)
-        want = dtype if path[-1] == "kernel" else torch.float32
-        if w.device != device or w.dtype != want or not w.is_contiguous():
-            raise ValueError(f"block weight {'/'.join(path)} must be a contiguous "
-                             f"{want} tensor on {device}; got {w.dtype} on {w.device}")
-        weights.append(w)
-    if _get(block, ("ffn", "w_1", "kernel")).shape != (D_MODEL, D_FF):
-        raise ValueError(f"fused_fft_block is built for dff={D_FF}")
-    ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
-    _packed[id(block)] = (block, dtype, device, ptrs)
-    _packed.move_to_end(id(block))
-    while len(_packed) > _PACKED_MAX:
-        _packed.popitem(last=False)
-    return ptrs
+        while len(_packed) > _PACKED_MAX:
+            _packed.popitem(last=False)
+        return ptrs
 
 
 def check_input(x: torch.Tensor, n_head: int, name: str) -> None:
@@ -307,7 +310,8 @@ def fused_fft_block(x: torch.Tensor, block: dict, n_head: int,
     ptrs = _weight_pointers(block, x.dtype, x.device)
     out = launch_kernel("s2s_fft_block", x, ptrs, _exact(packed, x.shape[1]))
     if x.shape[0]:  # an empty batch launches nothing
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
     return out
 
 
@@ -333,5 +337,6 @@ def fused_fft_block_pair(x: torch.Tensor, block0: dict, block1: dict, n_head: in
     ptrs = (ctypes.c_void_p * len(both))(*both)
     out = launch_kernel("s2s_fft_block_pair", x, ptrs, _exact(packed, x.shape[1]))
     if x.shape[0]:  # an empty batch launches nothing
-        pair_launches += 1
+        with _build.COUNT_LOCK:
+            pair_launches += 1
     return out

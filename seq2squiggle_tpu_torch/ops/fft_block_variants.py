@@ -301,7 +301,8 @@ def fused_abc(x: torch.Tensor, block: dict, n_head: int, variant: str = "b") -> 
     _check_choice(variant, ABC_VARIANTS, "variant")
     out = _launch("s2s_fft_block_abc", x, block, n_head, ABC_VARIANTS.index(variant))
     if x.shape[0]:
-        launches_abc += 1
+        with _build.COUNT_LOCK:
+            launches_abc += 1
     return out
 
 
@@ -314,7 +315,8 @@ def fused_d(x: torch.Tensor, block: dict, n_head: int, variant: str = "b") -> to
     _check_choice(variant, D_VARIANTS, "variant")
     out = _launch("s2s_fft_block_d", x, block, n_head, D_VARIANTS.index(variant))
     if x.shape[0]:
-        launches_d += 1
+        with _build.COUNT_LOCK:
+            launches_d += 1
     return out
 
 
@@ -327,7 +329,8 @@ def fused_parts(x: torch.Tensor, block: dict, n_head: int, stage: str = "full") 
     out = _launch("s2s_fft_block_parts", x, block, n_head, STAGES.index(stage),
                   sink=stage in SINK_STAGES)
     if x.shape[0]:
-        launches_parts += 1
+        with _build.COUNT_LOCK:
+            launches_parts += 1
     return out
 
 
@@ -345,7 +348,8 @@ def fused_ablate(x: torch.Tensor, block: dict, n_head: int, packed: bool | None 
     out = _launch("s2s_fft_block_ablate", x, block, n_head,
                   2 * (ABLATIONS.index(ablate) + 1) + int(exact))
     if x.shape[0]:
-        launches_ablate += 1
+        with _build.COUNT_LOCK:
+            launches_ablate += 1
     return out
 
 

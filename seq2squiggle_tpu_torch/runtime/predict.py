@@ -21,7 +21,9 @@ batch comes back in one copy.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -479,9 +481,65 @@ def _frame_outputs(outs) -> torch.Tensor:
     return torch.cat([o.reshape(B, -1).contiguous().view(torch.uint8) for o in outs], dim=1)
 
 
+def launching(device: torch.device, stream=None):
+    """The calling thread's torch state for launching on `device`: inference
+    mode, and on a card the device guard and `stream` (the thread's current
+    stream when None)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.inference_mode())
+    if device.type == "cuda":
+        stack.enter_context(torch.cuda.device(device))
+        if stream is not None:
+            stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+class ShardLaunchers:
+    """One launching thread per device shard, alive for a whole run.
+
+    Shard i's work runs on thread `seq2squiggle-shard{i}` under
+    `torch.inference_mode()`, with devices[i] current and, on a card, its own
+    stream: torch keeps grad mode, the current device and the current stream
+    per thread, and two shards of one card must not share a stream. Only the
+    part of a launch that releases the interpreter lock overlaps another
+    thread's; with a step of ~10k small launches the threads mostly take
+    turns at the lock (PERF.md, "The parallel layer on one card"). `close`
+    (or leaving the `with` block) joins the threads."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.devices]
+        # the shards share the cores: each thread's CPU ops get its share of
+        # the intra-op threads (a per-thread setting), not all of them each
+        share = max(1, torch.get_num_threads() // len(self.devices))
+        self._pools = [ThreadPoolExecutor(1, thread_name_prefix=f"seq2squiggle-shard{i}",
+                                          initializer=torch.set_num_threads, initargs=(share,))
+                       for i in range(len(self.devices))]
+
+    def submit(self, i: int, fn, *args):
+        """Run fn(*args) on shard i's thread; a future of its result."""
+        def run():
+            with launching(self.devices[i], self.streams[i]):
+                return fn(*args)
+
+        return self._pools[i].submit(run)
+
+    def close(self):
+        for pool in self._pools:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def predict_step_sharded(replicas: dict, codes, read_idx, chunk_off, base_keys: dict,
                          n_kmers=None, *, config: dict, knobs: PredictKnobs,
-                         devices) -> torch.Tensor:
+                         devices, launchers: Optional[ShardLaunchers] = None,
+                         ready=None) -> torch.Tensor:
     """Data-parallel predict over `devices`: the counterpart of the JAX
     package's make_predict_fn_sharded (shard_map over a 1-D 'dp' mesh).
 
@@ -490,26 +548,59 @@ def predict_step_sharded(replicas: dict, codes, read_idx, chunk_off, base_keys: 
     replica of the parameters (`replicas[device]`) and key
     (`base_keys[device]`), so each shard packs its own flat buffers with its
     own caps; the framed rows come back concatenated in shard order on
-    devices[0]. The per-chunk keys derive from global read indices, so the
-    rows are bit-identical to one device's. No collective: a device may
-    appear more than once (several shards on one card). Inputs are host
-    tensors or on any device; each slab moves to its own. One device is the
-    case n = 1: its rows come back as they are, with no copy."""
+    devices[0], on the calling thread's current stream. The per-chunk keys
+    derive from global read indices, so the rows are bit-identical to one
+    device's. No collective: a device may appear more than once (several
+    shards on one card). Inputs are host tensors or on any device; each slab
+    moves to its own. `ready`, a CUDA event, is waited on before the inputs
+    are read (the producer's copy into them).
+
+    With n > 1 each slab is launched from its shard's thread in `launchers`
+    (the run's ShardLaunchers; without one, a pool lives for this call).
+    With n = 1 the calling thread launches the step itself and its rows come
+    back as they are, with no copy."""
     n = len(devices)
     B = codes.shape[0]
     if B % n:
         raise ValueError(f"a batch of {B} rows does not split over {n} devices")
     per = B // n
-    outs = []
-    for i, dev in enumerate(devices):
+
+    def shard(i, dev):
         rows = slice(i * per, (i + 1) * per)
 
         def put(t):
-            return None if t is None else t[rows].to(dev, non_blocking=True)
+            if t is None:
+                return None
+            if t.is_cuda:  # read on this thread's stream, made on the producer's
+                stream = torch.cuda.current_stream(t.device)
+                if ready is not None:
+                    stream.wait_event(ready)
+                t.record_stream(stream)
+            return t[rows].to(dev, non_blocking=True)
 
-        outs.append(predict_step(
-            replicas[dev], put(codes), put(read_idx), put(chunk_off), base_keys[dev],
-            put(n_kmers), config=config, knobs=knobs, framed=True))
+        out = predict_step(replicas[dev], put(codes), put(read_idx), put(chunk_off),
+                           base_keys[dev], put(n_kmers), config=config, knobs=knobs,
+                           framed=True)
+        done = None
+        if out.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(out.device))
+        return out, done
+
     if n == 1:
-        return outs[0]
-    return torch.cat([o.to(devices[0], non_blocking=True) for o in outs])
+        return shard(0, devices[0])[0]
+    pool = launchers or ShardLaunchers(devices)
+    try:
+        futures = [pool.submit(i, shard, i, dev) for i, dev in enumerate(devices)]
+        outs = [f.result() for f in futures]
+    finally:
+        if launchers is None:
+            pool.close()
+    parts = []
+    for out, done in outs:
+        if done is not None:  # made on the shard's stream, read on this thread's
+            stream = torch.cuda.current_stream(out.device)
+            stream.wait_event(done)
+            out.record_stream(stream)
+        parts.append(out.to(devices[0], non_blocking=True))
+    return torch.cat(parts)

@@ -6,8 +6,18 @@ host memory, runs `predict_step` at the run's wire tier, and comes back as one
 framed uint8 buffer (runtime/predict.wire_layout) in one pinned copy;
 runtime/wire.py decodes it (the event tiers regenerate the amplitude noise on
 the host), StreamingExporter assembles reads and the AsyncWriter thread
-encodes and writes BLOW5/SLOW5 records. While batch N's buffer copies back,
-the host prepares batch N+1 and queues its step, so the device stays busy.
+encodes and writes BLOW5/SLOW5 records.
+
+The run is the JAX package's pipeline of host threads, on a card and on the
+CPU alike: `seq2squiggle-h2d` prepares batches, pins them and copies them to
+the device on a stream of its own (an event marks each copy); the calling
+thread reads the tier once a batch, launches the step (waiting on that event)
+and starts the copy back into pinned memory; `seq2squiggle-fetch` waits for
+the copy; `seq2squiggle-decode` decodes, probes, recomputes raw, steps down
+and exports, the only thread that touches the exporter and the decoders;
+`seq2squiggle-export` (the AsyncWriter) writes. Queues of H2D_DEPTH and
+PIPELINE_DEPTH batches join them. The first failure of any stage stops
+them all and is raised once every thread has been joined.
 
 Wire tiers, as the JAX package picks them: `auto` and `ulp` start at the
 2-bit ULP event tier under bf16 compute with T <= 255, `event` (and `auto`
@@ -28,9 +38,10 @@ Device-level data parallelism, as the JAX package's: with several devices
 (`device` as a list, or `--device cuda` with no index: every visible card) and a batch
 size that divides by their number, each batch's rows split shard-major over
 them (runtime/predict.predict_step_sharded), each device with its own replica
-of the parameters and its own packers; the framed rows come back in shard
-order, the ULP tier's decoder takes the per-shard flat buffers
-(`dp_shards`), and its first-batch probe judges the worst shard. There is no
+of the parameters and its own packers, each shard launched from its own
+thread (predict.ShardLaunchers); the framed rows come back in shard order,
+the ULP tier's decoder takes the per-shard flat buffers (`dp_shards`), and
+its first-batch probe judges the worst shard. There is no
 collective, and the output is bit-identical to one device's. A batch size
 that does not divide runs on the first device alone. A device may appear
 more than once: several shards on one card.
@@ -38,9 +49,12 @@ more than once: several shards on one card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
+import queue
+import threading
 import time
 from typing import Optional
 
@@ -59,7 +73,9 @@ from ..utils import tune_host_allocator
 from .async_writer import AsyncWriter
 from .batcher import iter_batches
 from .exporter import StreamingExporter
-from .predict import WIRE_ESC_NIB_PER_ROW, PredictKnobs, predict_step_sharded
+from .predict import (
+    WIRE_ESC_NIB_PER_ROW, PredictKnobs, ShardLaunchers, launching, predict_step_sharded,
+)
 from .wire import EventWireDecoder, delta_native, unframe_wire, unpack_wire
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
@@ -73,6 +89,12 @@ _TIER_NAMES = {4: "the 4-bit event tier", 8: "8-bit deltas", 12: "12-bit deltas"
 # tier only once this many batches have overflowed at it (one stray row in
 # millions must not widen every later batch).
 _DOWNGRADE_AFTER = 4
+# The JAX package's queue depths (its simulate.py:277, :535): batches prepared
+# ahead of the dispatch loop, and batches between dispatch and fetch and
+# between fetch and decode. The AsyncWriter holds 8 more.
+H2D_DEPTH = 6
+PIPELINE_DEPTH = 12
+_POLL_S = 0.05  # how often a stage blocked on a queue looks for another's failure
 
 
 def get_writer(out, profile_dict, ideal_mode, profile_name, preserve_read_ids,
@@ -286,20 +308,29 @@ def simulate_run(
     on_gpu = device.type == "cuda"
     T_row = int(config["max_signal_len"])
     K_row = int(config["max_dna_len"])
+    if on_gpu:  # the replicas and keys, made on this thread's stream, before others read them
+        for d in replicas:
+            torch.cuda.synchronize(d)
 
     def pinned(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
         return t.pin_memory() if on_gpu else t
 
+    def host_inputs(batch):
+        return tuple(pinned(a) for a in (batch.codes, batch.read_idx, batch.chunk_off,
+                                          batch.n_kmers))
+
     def to_host(t: torch.Tensor) -> torch.Tensor:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=on_gpu)
         return h.copy_(t, non_blocking=True)
 
-    def step(batch, k: PredictKnobs) -> torch.Tensor:
+    launchers = ShardLaunchers(devices) if dp_shards > 1 else None
+
+    def step(inputs, k: PredictKnobs, ready=None) -> torch.Tensor:
+        codes, read_idx, chunk_off, n_kmers = inputs
         return predict_step_sharded(
-            replicas, pinned(batch.codes), pinned(batch.read_idx),
-            pinned(batch.chunk_off), base_keys, pinned(batch.n_kmers),
-            config=config, knobs=k, devices=devices)
+            replicas, codes, read_idx, chunk_off, base_keys, n_kmers, config=config, knobs=k,
+            devices=devices, launchers=launchers, ready=ready)
 
     # The tier of the NEXT dispatch. Each in-flight buffer carries the bits
     # of the step that made it, so a step-down never decodes a buffer with
@@ -309,14 +340,16 @@ def simulate_run(
     decoders = {}
     decoded_by = {"native": 0, "numpy": 0}  # packed batches, by decoder
 
-    # Stage timers (SEQ2SQUIGGLE_TPU_TIMERS=1): where does the wall go?
+    # Stage timers (SEQ2SQUIGGLE_TPU_TIMERS=1): where does the wall go? Each
+    # key is written by one thread.
     timing = bool(os.environ.get("SEQ2SQUIGGLE_TPU_TIMERS"))
     timers = {"d2h_wait": 0.0, "decode": 0.0, "export": 0.0, "dispatch": 0.0}
+    d2h_waits = []
 
     def downgrade(exc, bits, batch):
-        """Recompute one batch raw; step the run down a tier once overflows
-        at the current one recur."""
-        raw = to_host(step(batch, dataclasses.replace(knobs, wire_bits=16)))
+        """Recompute one batch raw (on the decode thread's stream); step the
+        run down a tier once overflows at the current one recur."""
+        raw = to_host(step(host_inputs(batch), dataclasses.replace(knobs, wire_bits=16)))
         if on_gpu:
             torch.cuda.current_stream(device).synchronize()
         cur = state["knobs"]
@@ -362,17 +395,12 @@ def simulate_run(
             return downgrade(exc, bits, batch), False
         return arrs, False
 
-    def drain(entry):
-        done, buf_h, batch, bits = entry
-        t = time.perf_counter()
-        if done is not None:
-            done.synchronize()
+    def drain(buf_h, batch, bits):
         t_dec = time.perf_counter()
         t_cpu = time.thread_time()
         (out, counts), flat = decode(buf_h.numpy(), batch, bits)
         t_exp = time.perf_counter()
         if timing:
-            timers["d2h_wait"] += t_dec - t
             timers["decode"] += t_exp - t_dec
             timers["decode_cpu"] = timers.get("decode_cpu", 0.0) + time.thread_time() - t_cpu
             timers[f"decode_t{bits}"] = timers.get(f"decode_t{bits}", 0.0) + t_exp - t_dec
@@ -389,47 +417,146 @@ def simulate_run(
         if progress is not None:
             progress.update(sum(s.n_rows for s in batch.segments))
 
+    # The JAX package's pipeline (simulate.py:474-650): a producer thread
+    # prepares batches and copies them to the device, this thread launches
+    # each step and starts its copy back, a fetch thread waits for that copy
+    # and a decode thread decodes and exports; the AsyncWriter's thread
+    # writes. The bounded queues cap the batches in flight. A stage that
+    # fails stops every stage (no put or get outlasts the failure), and
+    # simulate_run raises the first failure once all have stopped.
+    h2d_queue = queue.Queue(H2D_DEPTH)
+    fetch_queue = queue.Queue(PIPELINE_DEPTH)
+    decode_queue = queue.Queue(PIPELINE_DEPTH)
+    errors = []
+    failed = threading.Event()
+
+    def put(q, item) -> bool:
+        while not failed.is_set():
+            try:
+                q.put(item, timeout=_POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def get(q):
+        """The next item, or None at the end or once a stage has failed."""
+        while not failed.is_set():
+            try:
+                return q.get(timeout=_POLL_S)
+            except queue.Empty:
+                pass
+        return None
+
+    def stage(body):
+        def run():
+            try:
+                body()
+            except BaseException as exc:  # raised again by simulate_run
+                errors.append(exc)
+                failed.set()
+        return run
+
+    def new_stream():
+        return torch.cuda.Stream(device) if on_gpu else None
+
+    def produce():
+        t_cpu = time.thread_time()
+        copy_stream = new_stream()
+        with launching(device, copy_stream):
+            for batch in iter_batches(reads, predict_batch_size, config["seq_kmer"],
+                                      config["max_dna_len"], read_idx_start=read_idx_start,
+                                      read_idx_step=read_idx_step):
+                inputs, ready = host_inputs(batch), None
+                if on_gpu:
+                    inputs = tuple(t.to(device, non_blocking=True) for t in inputs)
+                    ready = torch.cuda.Event()
+                    ready.record(copy_stream)
+                if not put(h2d_queue, (batch, inputs, ready)):
+                    return
+        if timing:
+            timers["h2d_cpu"] = time.thread_time() - t_cpu
+        put(h2d_queue, None)
+
+    def dispatch():
+        t, t_cpu = time.perf_counter(), time.thread_time()
+        with launching(device, new_stream()):
+            while (item := get(h2d_queue)) is not None:
+                batch, inputs, ready = item
+                k = state["knobs"]
+                buf_h = to_host(step(inputs, k, ready))
+                done = None
+                if on_gpu:
+                    done = torch.cuda.Event()
+                    done.record()
+                if not put(fetch_queue, (done, buf_h, batch, k.wire_bits)):
+                    return
+        if timing:
+            timers["dispatch"] = time.perf_counter() - t
+            timers["dispatch_cpu"] = time.thread_time() - t_cpu
+        put(fetch_queue, None)
+
+    def fetch():
+        while (item := get(fetch_queue)) is not None:
+            done, *rest = item
+            t = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            if timing:
+                d2h_waits.append(time.perf_counter() - t)
+                timers["d2h_wait"] += d2h_waits[-1]
+            if not put(decode_queue, rest):
+                return
+        put(decode_queue, None)
+
+    def decode_all():
+        with launching(device, new_stream()):
+            while (item := get(decode_queue)) is not None:
+                drain(*item)
+
     prof = None
     if trace_dir:
         from torch.profiler import ProfilerActivity, profile
 
         os.makedirs(trace_dir, exist_ok=True)
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu else [])
-        prof = profile(activities=activities)
+        # every thread's ops, not only this one's: the stages launch too
+        prof = profile(activities=activities, experimental_config=torch._C._profiler.
+                       _ExperimentalConfig(profile_all_threads=True))
         prof.start()
 
     t0 = time.perf_counter()
     t0_proc = time.process_time()
-    pending = None
-    with torch.inference_mode():
-        for batch in iter_batches(reads, predict_batch_size, config["seq_kmer"],
-                                  config["max_dna_len"], read_idx_start=read_idx_start,
-                                  read_idx_step=read_idx_step):
-            k = state["knobs"]
-            buf_h = to_host(step(batch, k))
-            done = None
-            if on_gpu:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(device))
-            # decode and export the previous batch while this one computes
-            # and copies
-            if pending is not None:
-                drain(pending)
-            pending = (done, buf_h, batch, k.wire_bits)
-        if pending is not None:
-            drain(pending)
-    if timing:
-        timers["dispatch"] = time.perf_counter() - t0
-    t_fin = time.perf_counter()
-    exporter.finalize()
+    threads = [threading.Thread(target=stage(body), name=name, daemon=True)
+               for body, name in ((produce, "seq2squiggle-h2d"), (fetch, "seq2squiggle-fetch"),
+                                  (decode_all, "seq2squiggle-decode"))]
+    try:
+        for thread in threads:
+            thread.start()
+        stage(dispatch)()
+        for thread in threads:
+            thread.join()
+    finally:
+        if launchers is not None:
+            launchers.close()
+        if prof is not None:
+            prof.stop()
+        if progress is not None:
+            progress.close()
+    try:
+        if errors:
+            raise errors[0]
+        t_fin = time.perf_counter()
+        exporter.finalize()
+    except BaseException:
+        with contextlib.suppress(Exception):  # end the writer's thread; the first error wins
+            writer.close()
+        raise
     elapsed = time.perf_counter() - t0
     if prof is not None:
-        prof.stop()
         trace = os.path.join(trace_dir, "predict.pt.trace.json")
         prof.export_chrome_trace(trace)
         logger.info(f"Profiler trace written to {trace}")
-    if progress is not None:
-        progress.close()
 
     stats = {
         "reads": exporter.total_reads,
@@ -454,6 +581,11 @@ def simulate_run(
             timers[f"slow5_{k}"] = v
         logger.warning("stage timers: " + ", ".join(
             f"{k}={v}" if isinstance(v, int) else f"{k}={v:.2f}s" for k, v in timers.items()))
+        if d2h_waits:
+            top = sorted(d2h_waits, reverse=True)[:5]
+            logger.warning(f"d2h waits: n={len(d2h_waits)} "
+                           f"median={sorted(d2h_waits)[len(d2h_waits) // 2] * 1e3:.0f}ms "
+                           f"top5={[f'{x:.1f}s' for x in top]}")
         stats["timers"] = dict(timers)
     logger.info(
         f"Simulated {stats['reads']} reads / {stats['samples']:,} samples in "
