@@ -1,0 +1,9 @@
+"""Share of the traced steps' wall in which no kernel, copy or set ran on
+the card."""
+
+
+def read(run):
+    tr = run["trace"]
+    if not tr or tr["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

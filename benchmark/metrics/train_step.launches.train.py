@@ -1,0 +1,9 @@
+"""Kernel launches a training step, from the profiler's host runtime events
+over the traced steps."""
+
+
+def read(run):
+    tr = run["trace"]
+    if not tr or not tr.get("steps") or not tr["launches"]:
+        return None
+    return tr["launches"] / tr["steps"]
