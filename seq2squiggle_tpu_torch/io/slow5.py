@@ -60,6 +60,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
+
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
 SLOW5_VERSION = "0.2.0"
@@ -409,9 +411,6 @@ class Slow5FileWriter:
         # first-touch page faults alone (measured), dwarfing the actual
         # encode.
         self._batch_buf: Optional[np.ndarray] = None
-        # batch-encode stage CPU accumulators (prep/native/file-write),
-        # surfaced through the pipeline's stage-timer report
-        self.timers = {"prep_cpu": 0.0, "encode_cpu": 0.0, "fwrite_cpu": 0.0}
 
     # O_DIRECT bulk-write machinery: buffered fh.write() of a whole
     # compressed flush (~27 MB) costs up to several CPU-seconds on hosts
@@ -587,78 +586,74 @@ class Slow5FileWriter:
         if self.signal_press not in (SIGPRESS_NONE, SIGPRESS_SVB_ZD):
             return False
         import ctypes
-        import time as _time
 
-        _tc = _time.thread_time()
-        n = len(read_ids)
-        if flat is None:
-            flat = np.ascontiguousarray(
-                np.concatenate([np.asarray(s, "<i2").ravel() for s in signals])
+        with tracing.span("slow5.prep", cpu=True):
+            n = len(read_ids)
+            if flat is None:
+                flat = np.ascontiguousarray(
+                    np.concatenate([np.asarray(s, "<i2").ravel() for s in signals])
+                )
+                sample_off = np.zeros(n + 1, np.int64)
+                np.cumsum([len(s) for s in signals], out=sample_off[1:])
+            else:
+                flat = np.ascontiguousarray(flat, "<i2")
+                sample_off = np.ascontiguousarray(sample_off, np.int64)
+            rid_bytes = np.frombuffer(
+                "".join(read_ids).encode("ascii"), np.uint8
+            ).copy()
+            rid_off = np.zeros(n + 1, np.int64)
+            np.cumsum([len(r) for r in read_ids], out=rid_off[1:])
+            chan = np.frombuffer(channel_number.encode("ascii"), np.uint8).copy()
+
+            # Output capacity: per-record worst case (svb-zd expansion bound)
+            # plus a margin covering both zlib's and zstd's compressBound
+            # overhead (~src/256 + constants; rec//64 + 512 dominates both).
+            nsig = np.diff(sample_off)
+            if self.signal_press == SIGPRESS_SVB_ZD:
+                sig_bytes = 16 + (nsig + 3) // 4 + 4 * nsig
+            else:
+                sig_bytes = 8 + 2 * nsig
+            rec = 2 + np.diff(rid_off) + 36 + sig_bytes + 8 + len(chan) + 21
+            cap = int(np.sum(4 + rec + rec // 64 + 512))
+            s0 = self.direct_source_offset()
+            need = cap + self._DIRECT_ALIGN
+            if self._batch_buf is None or self._batch_buf.size < need:
+                # mmap-backed => page-aligned base, as the O_DIRECT path needs
+                import mmap as _mmap
+
+                self._batch_buf = np.frombuffer(
+                    _mmap.mmap(-1, need), np.uint8
+                )
+            out = self._batch_buf[s0:]
+
+            offs = np.ascontiguousarray(offsets, np.float64)
+            mbs = np.ascontiguousarray(median_befores, np.float64)
+            rns = np.ascontiguousarray(read_numbers, np.int32)
+            sts = np.ascontiguousarray(start_times, np.uint64)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+        with tracing.span("slow5.encode", cpu=True):
+            pos = lib.blow5_encode_batch(
+                flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                sample_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                rid_bytes.ctypes.data_as(u8p),
+                rid_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                offs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                mbs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                rns.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                sts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                chan.ctypes.data_as(u8p), len(chan), n,
+                float(digitisation), float(range_val), float(sampling_rate),
+                int(self.record_press), int(self.signal_press), 1,
+                out.ctypes.data_as(u8p), cap,
             )
-            sample_off = np.zeros(n + 1, np.int64)
-            np.cumsum([len(s) for s in signals], out=sample_off[1:])
-        else:
-            flat = np.ascontiguousarray(flat, "<i2")
-            sample_off = np.ascontiguousarray(sample_off, np.int64)
-        rid_bytes = np.frombuffer(
-            "".join(read_ids).encode("ascii"), np.uint8
-        ).copy()
-        rid_off = np.zeros(n + 1, np.int64)
-        np.cumsum([len(r) for r in read_ids], out=rid_off[1:])
-        chan = np.frombuffer(channel_number.encode("ascii"), np.uint8).copy()
-
-        # Output capacity: per-record worst case (svb-zd expansion bound)
-        # plus a margin covering both zlib's and zstd's compressBound
-        # overhead (~src/256 + constants; rec//64 + 512 dominates both).
-        nsig = np.diff(sample_off)
-        if self.signal_press == SIGPRESS_SVB_ZD:
-            sig_bytes = 16 + (nsig + 3) // 4 + 4 * nsig
-        else:
-            sig_bytes = 8 + 2 * nsig
-        rec = 2 + np.diff(rid_off) + 36 + sig_bytes + 8 + len(chan) + 21
-        cap = int(np.sum(4 + rec + rec // 64 + 512))
-        s0 = self.direct_source_offset()
-        need = cap + self._DIRECT_ALIGN
-        if self._batch_buf is None or self._batch_buf.size < need:
-            # mmap-backed => page-aligned base, as the O_DIRECT path needs
-            import mmap as _mmap
-
-            self._batch_buf = np.frombuffer(
-                _mmap.mmap(-1, need), np.uint8
-            )
-        out = self._batch_buf[s0:]
-
-        offs = np.ascontiguousarray(offsets, np.float64)
-        mbs = np.ascontiguousarray(median_befores, np.float64)
-        rns = np.ascontiguousarray(read_numbers, np.int32)
-        sts = np.ascontiguousarray(start_times, np.uint64)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        self.timers["prep_cpu"] += _time.thread_time() - _tc
-        _tc = _time.thread_time()
-        pos = lib.blow5_encode_batch(
-            flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-            sample_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            rid_bytes.ctypes.data_as(u8p),
-            rid_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            mbs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            rns.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            sts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-            chan.ctypes.data_as(u8p), len(chan), n,
-            float(digitisation), float(range_val), float(sampling_rate),
-            int(self.record_press), int(self.signal_press), 1,
-            out.ctypes.data_as(u8p), cap,
-        )
-        self.timers["encode_cpu"] += _time.thread_time() - _tc
         if pos in (0, 2**64 - 1) or pos > cap:
             logger.warning(
                 "native blow5_encode_batch failed; falling back to the "
                 "per-record writer for this flush"
             )
             return False
-        _tc = _time.thread_time()
-        self.write_bulk(self._batch_buf, s0, pos)
-        self.timers["fwrite_cpu"] += _time.thread_time() - _tc
+        with tracing.span("slow5.fwrite", cpu=True):
+            self.write_bulk(self._batch_buf, s0, pos)
         return True
 
     def close(self):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import prng
+from .. import prng, tracing
 from ..ops.attention import _maybe_dropout, fft_block, linear
 from ..ops.block_train import fused_block_train, make_dropout_scales
 from ..ops.fft_block import fused_fft_block, fused_fft_block_pair
@@ -105,9 +105,11 @@ def _train_kernel_mode(config: dict, x: torch.Tensor,
 
 
 def _dropout_scales(key: torch.Tensor, rate: float, h: torch.Tensor, mesh) -> torch.Tensor:
-    """make_dropout_scales at the global batch's shape, cut to the rank's slab."""
+    """make_dropout_scales at the global batch's shape, cut to the rank's
+    slab (a `train.masks` span)."""
     rows, start = global_rows(mesh, h.shape[0])
-    scales = make_dropout_scales(key, rate, (rows, *h.shape[1:]), h.dtype)
+    with tracing.span("train.masks"):
+        scales = make_dropout_scales(key, rate, (rows, *h.shape[1:]), h.dtype)
     return scales[start:start + h.shape[0]] if rows != h.shape[0] else scales
 
 

@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .. import prng
+from .. import prng, tracing
 from ..parallel.mesh import copy_to_tp, global_rows, reduce_from_tp
 
 
@@ -62,9 +62,10 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def dropout_mask(key: torch.Tensor, keep: float, shape, mesh=None) -> torch.Tensor:
     """jax.random.bernoulli(key, keep, shape) for the global batch, cut to
-    this rank's dp slab of `shape[0]` rows."""
+    this rank's dp slab of `shape[0]` rows (a `train.masks` span)."""
     rows, start = global_rows(mesh, shape[0])
-    mask = prng.bernoulli(key, keep, (rows, *shape[1:]))
+    with tracing.span("train.masks"):
+        mask = prng.bernoulli(key, keep, (rows, *shape[1:]))
     return mask[start:start + shape[0]] if rows != shape[0] else mask
 
 

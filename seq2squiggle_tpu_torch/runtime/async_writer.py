@@ -26,6 +26,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import tracing
+
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
 _SENTINEL = object()
@@ -38,9 +40,7 @@ class AsyncWriter:
         self._writer = writer
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queued_batches)
         self._error: Optional[BaseException] = None
-        # wall/CPU seconds spent inside write_batch on the worker thread
-        # (read by runtime/simulate's stage-timer report)
-        self.timers = {"write": 0.0, "write_cpu": 0.0}
+        self._writes = 0  # the id of the worker's next `write` span
         self._thread = threading.Thread(
             target=self._run, name="seq2squiggle-export", daemon=True
         )
@@ -57,15 +57,12 @@ class AsyncWriter:
                 if item is _SENTINEL:
                     return
                 if self._error is None:
-                    import time
-
-                    t, tc = time.perf_counter(), time.thread_time()
-                    if isinstance(item, tuple) and item[0] == "__flat__":
-                        self._writer.write_flat(item[1], item[2], item[3])
-                    else:
-                        self._writer.write_batch(item)
-                    self.timers["write"] += time.perf_counter() - t
-                    self.timers["write_cpu"] += time.thread_time() - tc
+                    with tracing.span("write", self._writes, cpu=True):
+                        if isinstance(item, tuple) and item[0] == "__flat__":
+                            self._writer.write_flat(item[1], item[2], item[3])
+                        else:
+                            self._writer.write_batch(item)
+                    self._writes += 1
             except BaseException as exc:  # re-raised on the caller thread
                 self._error = exc
             finally:

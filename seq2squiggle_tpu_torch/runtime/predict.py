@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import prng
+from .. import prng, tracing
 from ..models.fft_model import (
     compute_dtype,
     decoder_forward,
@@ -74,14 +74,17 @@ WIRE_ESC_NIB_PER_ROW = 20
 
 def _compute_durations(params: dict, emb_out: torch.Tensor, keys: torch.Tensor,
                        knobs: PredictKnobs, config: dict) -> torch.Tensor:
-    """Integer dwell counts per k-mer, (B, K) int32."""
+    """Integer dwell counts per k-mer, (B, K) int32. The draws are the
+    `sampling` span (tracing.py), on the thread that launches them."""
     B, K = emb_out.shape[:2]
     if knobs.duration_sampling:
         conc, rate = duration_gamma_params(params, emb_out, config)
-        dur = sample_gamma_durations(keys, conc, rate)
+        with tracing.span("sampling"):
+            dur = sample_gamma_durations(keys, conc, rate)
         dur = dur.clamp_min(1.0).clamp_min(float(knobs.min_duration))
     elif knobs.dwell_std > 0:
-        noise = sample_normal(keys, (K,))
+        with tracing.span("sampling"):
+            noise = sample_normal(keys, (K,))
         dur = prng.fma(noise, prng.f32(knobs.dwell_std), prng.f32(knobs.dwell_mean))
         dur = dur.clamp_min(float(knobs.min_duration))
     else:
@@ -200,7 +203,8 @@ def _raw_rows(dec, noise_ext, chunk_keys, read_idx, knobs: PredictKnobs):
     pred = dec.float() * knobs.scaling_max_value
     if knobs.noise_std > 0:
         non_zero = pred != 0.0
-        gauss = sample_normal(prng.fold_in(chunk_keys, 2), (pred.shape[1],))
+        with tracing.span("sampling"):
+            gauss = sample_normal(prng.fold_in(chunk_keys, 2), (pred.shape[1],))
         if knobs.noise_sampling:
             std = noise_ext.clamp_min(knobs.min_noise)
             std = std * knobs.noise_std * knobs.scaling_max_value

@@ -31,8 +31,9 @@ that fails: a kernel that fails raises.
 Every output format (BLOW5, SLOW5, POD5), profile (R10, R9, RNA) and read
 mode (reads, reference with -n or -c, whole contigs) of the JAX package runs
 through this loop, as do --num-shards / --shard-index (round-robin reads, one
-output file a shard), --trace-dir (a torch.profiler trace) and the stage
-timers (SEQ2SQUIGGLE_TPU_TIMERS=1: `timers` in the returned stats).
+output file a shard), --trace-dir (a torch.profiler trace) and the stages'
+spans (SEQ2SQUIGGLE_TPU_TIMERS=1, tracing.py: `timers` in the returned stats
+is made of them; under a profiler they are named ranges on every thread).
 
 Device-level data parallelism, as the JAX package's: with several devices
 (`device` as a list, or `--device cuda` with no index: every visible card) and a batch
@@ -51,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import os
 import queue
@@ -61,10 +63,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import prng
+from .. import prng, tracing
 from ..device import resolve_device, resolve_devices
 from ..config import check_model_config
 from ..io.reads import get_reads
+from ..io.slow5 import Slow5FileWriter
 from ..io.writers import BLOW5Writer, POD5Writer
 from ..models.fft_model import compute_dtype, count_params, init_params, to_device
 from ..models.weights import load_checkpoint
@@ -177,6 +180,40 @@ def ulp_budget_short(arrs, dp_shards: int = 1) -> Optional[str]:
     return None
 
 
+def stage_timers(got: tracing.Totals, decoders: dict, writer) -> dict:
+    """A job's `stats["timers"]` from its spans (tracing.py): seconds a job,
+    a stage's wall or, where the key ends in `_cpu`, its thread's CPU;
+    `n_t<bits>` counts the batches decoded at each tier."""
+    timers = {
+        "d2h_wait": got.wall("fetch.wait"),
+        "decode": got.wall("decode"), "decode_cpu": got.cpu("decode"),
+        "export": got.wall("export"), "export_cpu": got.cpu("export"),
+        "dispatch": got.wall("dispatch.loop"), "dispatch_cpu": got.cpu("dispatch.loop"),
+        "h2d_cpu": got.cpu("h2d.loop"),
+        "finalize": got.wall("finalize"),
+        # the launching thread's waits for the producer and for room in the
+        # fetch queue, and its other time off the CPU in its batches (the
+        # interpreter lock, driver calls that block)
+        "input_wait": got.wall("dispatch.input_wait"),
+        "output_wait": got.wall("dispatch.output_wait"),
+        "dispatch_offcpu": (got.wall("dispatch") - got.cpu("dispatch")
+                            - got.wall("dispatch.input_wait") - got.wall("dispatch.output_wait")),
+        "sampling": got.wall("sampling"),
+        "job_setup": got.wall("job.setup"),
+    }
+    timers.update(got.counts)  # n_t<bits>, decode_t<bits>
+    for bits, dec in decoders.items():
+        for stage, name in dec.spans.items():
+            timers[f"event{bits}_{stage}"] = got.wall(name)
+        timers[f"event{bits}_rebuild_cpu"] = got.cpu(dec.spans["rebuild"])
+    if isinstance(writer, AsyncWriter):
+        timers["writer_write"], timers["writer_write_cpu"] = got.wall("write"), got.cpu("write")
+    if isinstance(getattr(getattr(writer, "_writer", writer), "_file", None), Slow5FileWriter):
+        for stage in ("prep", "encode", "fwrite"):
+            timers[f"slow5_{stage}_cpu"] = got.cpu(f"slow5.{stage}")
+    return timers
+
+
 def simulate_run(
     *,
     config: dict,
@@ -225,92 +262,95 @@ def simulate_run(
     packed batches the C++ and the numpy decoders decoded; dp_shards, the
     device shards of each batch; and with SEQ2SQUIGGLE_TPU_TIMERS set,
     timers)."""
-    if num_shards > 1 and not (0 <= shard_index < num_shards):
-        raise ValueError("shard_index must be in [0, num_shards)")
-    devices = ([resolve_device(d) for d in device] if isinstance(device, (list, tuple))
-               else resolve_devices(device))
-    if len(devices) > 1 and predict_batch_size % len(devices):
-        logger.info(f"Batch size {predict_batch_size} does not divide over {len(devices)} "
-                    f"devices; predicting on {devices[0]} alone")
-        devices = devices[:1]
-    elif len(devices) > 1:
-        logger.info(f"Data-parallel prediction over {len(devices)} devices")
-    dp_shards = len(devices)
-    device = devices[0]
-    tune_host_allocator()
-    profile_dict = update_profile(
-        get_profile(profile),
-        sample_rate=sample_rate, bps=bps, digitisation=digitisation,
-        range=range_val, offset_mean=offset_mean, offset_std=offset_std,
-        median_before_mean=median_before_mean,
-        median_before_std=median_before_std,
-    )
-    if dwell_mean is None:
-        dwell_mean = profile_dict["sample_rate"] / profile_dict["bps"]
-    config = update_config_for_profile(profile, config)
-    ideal_mode = not (duration_sampling or dwell_std > 0)
-    wire_bits = start_wire_bits(wire_format, config)
+    timing = tracing.switch_from_env()
+    before = tracing.totals()
+    with tracing.span("job.setup"):  # to the start of the run loop's threads
+        if num_shards > 1 and not (0 <= shard_index < num_shards):
+            raise ValueError("shard_index must be in [0, num_shards)")
+        devices = ([resolve_device(d) for d in device] if isinstance(device, (list, tuple))
+                   else resolve_devices(device))
+        if len(devices) > 1 and predict_batch_size % len(devices):
+            logger.info(f"Batch size {predict_batch_size} does not divide over {len(devices)} "
+                        f"devices; predicting on {devices[0]} alone")
+            devices = devices[:1]
+        elif len(devices) > 1:
+            logger.info(f"Data-parallel prediction over {len(devices)} devices")
+        dp_shards = len(devices)
+        device = devices[0]
+        tune_host_allocator()
+        profile_dict = update_profile(
+            get_profile(profile),
+            sample_rate=sample_rate, bps=bps, digitisation=digitisation,
+            range=range_val, offset_mean=offset_mean, offset_std=offset_std,
+            median_before_mean=median_before_mean,
+            median_before_std=median_before_std,
+        )
+        if dwell_mean is None:
+            dwell_mean = profile_dict["sample_rate"] / profile_dict["bps"]
+        config = update_config_for_profile(profile, config)
+        ideal_mode = not (duration_sampling or dwell_std > 0)
+        wire_bits = start_wire_bits(wire_format, config)
 
-    writer_rng = np.random.default_rng(seed)
-    writer = get_writer(out, profile_dict, ideal_mode, profile, preserve_read_ids,
-                        writer_rng, slow5_press=slow5_press)
+        writer_rng = np.random.default_rng(seed)
+        writer = get_writer(out, profile_dict, ideal_mode, profile, preserve_read_ids,
+                            writer_rng, slow5_press=slow5_press)
 
-    params, ckpt_config = resolve_weights(saved_weights, config, seed, profile)
-    check_model_config(ckpt_config, config)
-    logger.info(f"Model parameters: {count_params(params):,}")
-    replicas = {d: to_device(params, d, compute_dtype(config)) for d in dict.fromkeys(devices)}
+        params, ckpt_config = resolve_weights(saved_weights, config, seed, profile)
+        check_model_config(ckpt_config, config)
+        logger.info(f"Model parameters: {count_params(params):,}")
+        replicas = {d: to_device(params, d, compute_dtype(config)) for d in dict.fromkeys(devices)}
 
-    knobs = PredictKnobs(
-        dwell_mean=float(dwell_mean),
-        dwell_std=float(dwell_std),
-        noise_std=float(noise_std),
-        noise_sampling=bool(noise_sampling),
-        duration_sampling=bool(duration_sampling),
-        min_noise=float(min_noise),
-        min_duration=int(min_duration),
-        scaling_max_value=float(config["scaling_max_value"]),
-        digitisation=float(profile_dict["digitisation"]),
-        signal_range=float(profile_dict["range"]),
-        offset_mean=float(profile_dict["offset_mean"]),
-        wire_bits=wire_bits,
-    )
-    base_keys = {d: prng.key(seed, d) for d in replicas}
+        knobs = PredictKnobs(
+            dwell_mean=float(dwell_mean),
+            dwell_std=float(dwell_std),
+            noise_std=float(noise_std),
+            noise_sampling=bool(noise_sampling),
+            duration_sampling=bool(duration_sampling),
+            min_noise=float(min_noise),
+            min_duration=int(min_duration),
+            scaling_max_value=float(config["scaling_max_value"]),
+            digitisation=float(profile_dict["digitisation"]),
+            signal_range=float(profile_dict["range"]),
+            offset_mean=float(profile_dict["offset_mean"]),
+            wire_bits=wire_bits,
+        )
+        base_keys = {d: prng.key(seed, d) for d in replicas}
 
-    reads, total_chunks = get_reads(
-        fasta, read_input, n, r, c, config, distr, seed, profile, min_read_len
-    )
+        reads, total_chunks = get_reads(
+            fasta, read_input, n, r, c, config, distr, seed, profile, min_read_len
+        )
 
-    # Round-robin read sharding over processes: the keys derive from GLOBAL
-    # read indices, so each read's signal is the same however many shards
-    # simulate the set; each shard writes its own file, numbering reads by
-    # global index so that indexed UUIDs never collide when files merge.
-    read_idx_start, read_idx_step = 0, 1
-    if num_shards > 1:
-        all_reads = reads
-        reads = (item for i, item in enumerate(all_reads) if i % num_shards == shard_index)
-        total_chunks //= num_shards
-        read_idx_start, read_idx_step = shard_index, num_shards
-        writer.read_index_start, writer.read_index_step = read_idx_start, read_idx_step
+        # Round-robin read sharding over processes: the keys derive from GLOBAL
+        # read indices, so each read's signal is the same however many shards
+        # simulate the set; each shard writes its own file, numbering reads by
+        # global index so that indexed UUIDs never collide when files merge.
+        read_idx_start, read_idx_step = 0, 1
+        if num_shards > 1:
+            all_reads = reads
+            reads = (item for i, item in enumerate(all_reads) if i % num_shards == shard_index)
+            total_chunks //= num_shards
+            read_idx_start, read_idx_step = shard_index, num_shards
+            writer.read_index_start, writer.read_index_step = read_idx_start, read_idx_step
 
-    if export_every_n_samples != float("inf"):
-        writer = AsyncWriter(writer)
-    exporter = StreamingExporter(writer, export_every_n_samples)
+        if export_every_n_samples != float("inf"):
+            writer = AsyncWriter(writer)
+        exporter = StreamingExporter(writer, export_every_n_samples)
 
-    progress = None
-    if show_progress:
-        try:
-            from tqdm import tqdm
+        progress = None
+        if show_progress:
+            try:
+                from tqdm import tqdm
 
-            progress = tqdm(total=total_chunks, unit="chunk", smoothing=0.05)
-        except ImportError:  # pragma: no cover
-            progress = None
+                progress = tqdm(total=total_chunks, unit="chunk", smoothing=0.05)
+            except ImportError:  # pragma: no cover
+                progress = None
 
-    on_gpu = device.type == "cuda"
-    T_row = int(config["max_signal_len"])
-    K_row = int(config["max_dna_len"])
-    if on_gpu:  # the replicas and keys, made on this thread's stream, before others read them
-        for d in replicas:
-            torch.cuda.synchronize(d)
+        on_gpu = device.type == "cuda"
+        T_row = int(config["max_signal_len"])
+        K_row = int(config["max_dna_len"])
+        if on_gpu:  # the replicas and keys, made on this thread's stream, before others read them
+            for d in replicas:
+                torch.cuda.synchronize(d)
 
     def pinned(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -339,12 +379,6 @@ def simulate_run(
     overflow_counts = dict.fromkeys(_NEXT_BITS, 0)
     decoders = {}
     decoded_by = {"native": 0, "numpy": 0}  # packed batches, by decoder
-
-    # Stage timers (SEQ2SQUIGGLE_TPU_TIMERS=1): where does the wall go? Each
-    # key is written by one thread.
-    timing = bool(os.environ.get("SEQ2SQUIGGLE_TPU_TIMERS"))
-    timers = {"d2h_wait": 0.0, "decode": 0.0, "export": 0.0, "dispatch": 0.0}
-    d2h_waits = []
 
     def downgrade(exc, bits, batch):
         """Recompute one batch raw (on the decode thread's stream); step the
@@ -395,25 +429,16 @@ def simulate_run(
             return downgrade(exc, bits, batch), False
         return arrs, False
 
-    def drain(buf_h, batch, bits):
-        t_dec = time.perf_counter()
-        t_cpu = time.thread_time()
-        (out, counts), flat = decode(buf_h.numpy(), batch, bits)
-        t_exp = time.perf_counter()
-        if timing:
-            timers["decode"] += t_exp - t_dec
-            timers["decode_cpu"] = timers.get("decode_cpu", 0.0) + time.thread_time() - t_cpu
-            timers[f"decode_t{bits}"] = timers.get(f"decode_t{bits}", 0.0) + t_exp - t_dec
-            timers[f"n_t{bits}"] = timers.get(f"n_t{bits}", 0) + 1
-            t_cpu = time.thread_time()
-        if flat:
-            exporter.add_flat(out, counts, batch.segments)
-        else:
-            exporter.add_batch(out, counts, batch.segments)
-        if timing:
-            timers["export"] += time.perf_counter() - t_exp
-            timers["export_cpu"] = (timers.get("export_cpu", 0.0)
-                                    + time.thread_time() - t_cpu)
+    def drain(i, buf_h, batch, bits):
+        with tracing.span("decode", i, cpu=True) as decoding:
+            (out, counts), flat = decode(buf_h.numpy(), batch, bits)
+        tracing.count(f"n_t{bits}")
+        tracing.count(f"decode_t{bits}", decoding.seconds)
+        with tracing.span("export", i, cpu=True):
+            if flat:
+                exporter.add_flat(out, counts, batch.segments)
+            else:
+                exporter.add_batch(out, counts, batch.segments)
         if progress is not None:
             progress.update(sum(s.n_rows for s in batch.segments))
 
@@ -448,6 +473,10 @@ def simulate_run(
                 pass
         return None
 
+    def items(q):
+        while (item := get(q)) is not None:
+            yield item
+
     def stage(body):
         def run():
             try:
@@ -460,59 +489,61 @@ def simulate_run(
     def new_stream():
         return torch.cuda.Stream(device) if on_gpu else None
 
+    # Every stage records its batches as spans (tracing.py), batch i of the
+    # job with id i, as each stage takes the batches in order.
     def produce():
-        t_cpu = time.thread_time()
-        copy_stream = new_stream()
-        with launching(device, copy_stream):
-            for batch in iter_batches(reads, predict_batch_size, config["seq_kmer"],
-                                      config["max_dna_len"], read_idx_start=read_idx_start,
-                                      read_idx_step=read_idx_step):
-                inputs, ready = host_inputs(batch), None
-                if on_gpu:
-                    inputs = tuple(t.to(device, non_blocking=True) for t in inputs)
-                    ready = torch.cuda.Event()
-                    ready.record(copy_stream)
-                if not put(h2d_queue, (batch, inputs, ready)):
-                    return
-        if timing:
-            timers["h2d_cpu"] = time.thread_time() - t_cpu
+        with tracing.span("h2d.loop", cpu=True):
+            copy_stream = new_stream()
+            with launching(device, copy_stream):
+                batches = iter_batches(reads, predict_batch_size, config["seq_kmer"],
+                                       config["max_dna_len"], read_idx_start=read_idx_start,
+                                       read_idx_step=read_idx_step)
+                for i, batch in enumerate(batches):
+                    with tracing.span("h2d", i):
+                        inputs, ready = host_inputs(batch), None
+                        if on_gpu:
+                            inputs = tuple(t.to(device, non_blocking=True) for t in inputs)
+                            ready = torch.cuda.Event()
+                            ready.record(copy_stream)
+                        if not put(h2d_queue, (batch, inputs, ready)):
+                            return
         put(h2d_queue, None)
 
     def dispatch():
-        t, t_cpu = time.perf_counter(), time.thread_time()
-        with launching(device, new_stream()):
-            while (item := get(h2d_queue)) is not None:
-                batch, inputs, ready = item
-                k = state["knobs"]
-                buf_h = to_host(step(inputs, k, ready))
-                done = None
-                if on_gpu:
-                    done = torch.cuda.Event()
-                    done.record()
-                if not put(fetch_queue, (done, buf_h, batch, k.wire_bits)):
-                    return
-        if timing:
-            timers["dispatch"] = time.perf_counter() - t
-            timers["dispatch_cpu"] = time.thread_time() - t_cpu
+        """The launching thread. Its last `dispatch` span, id n after the
+        job's n batches, is the wait for the end of the batches."""
+        with tracing.span("dispatch.loop", cpu=True), launching(device, new_stream()):
+            for i in itertools.count():
+                with tracing.span("dispatch", i, cpu=True):
+                    with tracing.span("dispatch.input_wait", i):
+                        item = get(h2d_queue)
+                    if item is None:
+                        break
+                    batch, inputs, ready = item
+                    k = state["knobs"]
+                    buf_h = to_host(step(inputs, k, ready))
+                    done = None
+                    if on_gpu:
+                        done = torch.cuda.Event()
+                        done.record()
+                    with tracing.span("dispatch.output_wait", i):
+                        if not put(fetch_queue, (done, buf_h, batch, k.wire_bits)):
+                            return
         put(fetch_queue, None)
 
     def fetch():
-        while (item := get(fetch_queue)) is not None:
-            done, *rest = item
-            t = time.perf_counter()
-            if done is not None:
-                done.synchronize()
-            if timing:
-                d2h_waits.append(time.perf_counter() - t)
-                timers["d2h_wait"] += d2h_waits[-1]
+        for i, (done, *rest) in enumerate(items(fetch_queue)):
+            with tracing.span("fetch.wait", i):
+                if done is not None:
+                    done.synchronize()
             if not put(decode_queue, rest):
                 return
         put(decode_queue, None)
 
     def decode_all():
         with launching(device, new_stream()):
-            while (item := get(decode_queue)) is not None:
-                drain(*item)
+            for i, item in enumerate(items(decode_queue)):
+                drain(i, *item)
 
     prof = None
     if trace_dir:
@@ -546,8 +577,8 @@ def simulate_run(
     try:
         if errors:
             raise errors[0]
-        t_fin = time.perf_counter()
-        exporter.finalize()
+        with tracing.span("finalize"):
+            exporter.finalize()
     except BaseException:
         with contextlib.suppress(Exception):  # end the writer's thread; the first error wins
             writer.close()
@@ -569,24 +600,11 @@ def simulate_run(
         "dp_shards": dp_shards,
     }
     if timing:
-        timers["finalize"] = time.perf_counter() - t_fin
+        timers = stage_timers(tracing.totals().minus(before), decoders, writer)
         timers["process_cpu"] = time.process_time() - t0_proc
-        for bits, dec in decoders.items():
-            for k, v in dec.timers.items():
-                timers[f"event{bits}_{k}"] = v
-        for k, v in getattr(writer, "timers", {}).items():
-            timers[f"writer_{k}"] = v
-        inner = getattr(getattr(writer, "_writer", writer), "_file", None)
-        for k, v in getattr(inner, "timers", {}).items():
-            timers[f"slow5_{k}"] = v
         logger.warning("stage timers: " + ", ".join(
             f"{k}={v}" if isinstance(v, int) else f"{k}={v:.2f}s" for k, v in timers.items()))
-        if d2h_waits:
-            top = sorted(d2h_waits, reverse=True)[:5]
-            logger.warning(f"d2h waits: n={len(d2h_waits)} "
-                           f"median={sorted(d2h_waits)[len(d2h_waits) // 2] * 1e3:.0f}ms "
-                           f"top5={[f'{x:.1f}s' for x in top]}")
-        stats["timers"] = dict(timers)
+        stats["timers"] = timers
     logger.info(
         f"Simulated {stats['reads']} reads / {stats['samples']:,} samples in "
         f"{elapsed:.2f}s ({stats['ksamples_per_s']:.1f} kSamples/s)"

@@ -34,12 +34,10 @@ they give what the JAX package's numpy paths give.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-from .. import prng
+from .. import prng, tracing
 from ..sampling import per_chunk_keys, sample_normal
 from .predict import PredictKnobs, WIRE_EXC_SLOTS, wire_layout
 
@@ -192,9 +190,9 @@ class EventWireDecoder:
         kd = [int(w) & 0xFFFFFFFF for w in self._base_key.tolist()]
         self._key_words = (kd[0], kd[1])
         self._T = None  # set on first call (static shape)
-        # stage accumulators (read by runtime/simulate's stage timers)
-        self.timers = {"noise_dispatch": 0.0, "noise_wait": 0.0,
-                       "rebuild": 0.0, "rebuild_cpu": 0.0}
+        # the names of its stages' spans (runtime/simulate.stage_timers)
+        self.spans = {stage: f"event{knobs.wire_bits}.{stage}"
+                      for stage in ("noise_dispatch", "noise_wait", "rebuild")}
         # the last decode ran the C++ decoder (True) or numpy (False)
         self.native_used = None
 
@@ -234,9 +232,8 @@ class EventWireDecoder:
         # numpy path draws it here with the port's threefry.
         gauss = None
         if knobs.noise_std > 0 and not native:
-            _t = time.perf_counter()
-            gauss = self._noise(read_idx, chunk_off)
-            self.timers["noise_dispatch"] += time.perf_counter() - _t
+            with tracing.span(self.spans["noise_dispatch"]):
+                gauss = self._noise(read_idx, chunk_off)
         self.native_used = native
 
         # Single-pass C++ decode when available (bit-identical to the numpy
@@ -258,37 +255,35 @@ class EventWireDecoder:
             i32p = ctypes.POINTER(ctypes.c_int32)
             f32p = ctypes.POINTER(ctypes.c_float)
             ridx = np.ascontiguousarray(read_idx, np.int32)
-            _t = time.perf_counter()
             gauss = None
-            if noise_mode:
-                coff = np.ascontiguousarray(chunk_off, np.int32)
-                gauss = np.empty((B, T), np.float32)
-                lib.threefry_normal_fill(
-                    self._key_words[0], self._key_words[1],
-                    ridx.ctypes.data_as(i32p), coff.ctypes.data_as(i32p),
-                    B, T, gauss.ctypes.data_as(f32p),
-                )
-            self.timers["noise_wait"] += time.perf_counter() - _t
-            _t = time.perf_counter()
+            with tracing.span(self.spans["noise_wait"]):
+                if noise_mode:
+                    coff = np.ascontiguousarray(chunk_off, np.int32)
+                    gauss = np.empty((B, T), np.float32)
+                    lib.threefry_normal_fill(
+                        self._key_words[0], self._key_words[1],
+                        ridx.ctypes.data_as(i32p), coff.ctypes.data_as(i32p),
+                        B, T, gauss.ctypes.data_as(f32p),
+                    )
             flat = np.empty(B * T, np.int16)
             counts = np.empty(B, np.int32)
-            total = lib.event_wire_decode(
-                np.ascontiguousarray(stream).ctypes.data_as(u8p),
-                np.ascontiguousarray(levels).ctypes.data_as(i16p),
-                np.ascontiguousarray(sigma_q).ctypes.data_as(u8p),
-                np.ascontiguousarray(ends).ctypes.data_as(u8p),
-                np.ascontiguousarray(exc_pos).ctypes.data_as(u8p),
-                np.ascontiguousarray(exc_val).ctypes.data_as(i16p),
-                gauss.ctypes.data_as(f32p) if gauss is not None else None,
-                ridx.ctypes.data_as(i32p),
-                B, T, K, exc_pos.shape[1],
-                noise_mode, np.float32(0.25), sigma_tail,
-                np.float32(knobs.noise_std * cpr),
-                np.float32(knobs.offset_mean),
-                flat.ctypes.data_as(i16p),
-                counts.ctypes.data_as(i32p),
-            )
-            self.timers["rebuild"] += time.perf_counter() - _t
+            with tracing.span(self.spans["rebuild"], cpu=True):
+                total = lib.event_wire_decode(
+                    np.ascontiguousarray(stream).ctypes.data_as(u8p),
+                    np.ascontiguousarray(levels).ctypes.data_as(i16p),
+                    np.ascontiguousarray(sigma_q).ctypes.data_as(u8p),
+                    np.ascontiguousarray(ends).ctypes.data_as(u8p),
+                    np.ascontiguousarray(exc_pos).ctypes.data_as(u8p),
+                    np.ascontiguousarray(exc_val).ctypes.data_as(i16p),
+                    gauss.ctypes.data_as(f32p) if gauss is not None else None,
+                    ridx.ctypes.data_as(i32p),
+                    B, T, K, exc_pos.shape[1],
+                    noise_mode, np.float32(0.25), sigma_tail,
+                    np.float32(knobs.noise_std * cpr),
+                    np.float32(knobs.offset_mean),
+                    flat.ctypes.data_as(i16p),
+                    counts.ctypes.data_as(i32p),
+                )
             return flat[:total], counts
 
         # 4-bit biased deltas -> int32, then exact exception residuals.
@@ -399,9 +394,8 @@ class EventWireDecoder:
 
         gauss = None
         if knobs.noise_std > 0 and not native:
-            _t = time.perf_counter()
-            gauss = self._noise(read_idx, chunk_off)
-            self.timers["noise_dispatch"] += time.perf_counter() - _t
+            with tracing.span(self.spans["noise_dispatch"]):
+                gauss = self._noise(read_idx, chunk_off)
         self.native_used = native
 
         scale_s = np.float32(knobs.scaling_max_value)
@@ -435,27 +429,24 @@ class EventWireDecoder:
             counts = np.empty(B, np.int32)
             # The C++ decoder regenerates each row's threefry normals inside
             # its vector pass: no (B, T) gauss buffer exists at all.
-            _t = time.perf_counter()
-            _tc = time.thread_time()
-            total = lib.ulp_event_wire_decode_fused(
-                np.ascontiguousarray(stream).ctypes.data_as(u8p),
-                np.ascontiguousarray(lvl0).ctypes.data_as(u16p),
-                np.ascontiguousarray(lvl_d).ctypes.data_as(i8p),
-                np.ascontiguousarray(sigma_q).ctypes.data_as(u8p),
-                np.ascontiguousarray(ends).ctypes.data_as(u8p),
-                np.ascontiguousarray(esc).ctypes.data_as(u8p),
-                np.ascontiguousarray(lvl_esc).ctypes.data_as(u16p),
-                np.ascontiguousarray(wide_b).ctypes.data_as(u8p),
-                self._key_words[0], self._key_words[1],
-                coff.ctypes.data_as(i32p), ridx.ctypes.data_as(i32p),
-                B, T, K, B_s, cap_esc_s, cap_wide_s, cap_lvl_s,
-                noise_mode, sigma_scale_pa, sigma_tail_pa,
-                np.float32(knobs.noise_std), scale_s, dig, rng_f, offset,
-                flat.ctypes.data_as(i16p),
-                counts.ctypes.data_as(i32p),
-            )
-            self.timers["rebuild"] += time.perf_counter() - _t
-            self.timers["rebuild_cpu"] += time.thread_time() - _tc
+            with tracing.span(self.spans["rebuild"], cpu=True):
+                total = lib.ulp_event_wire_decode_fused(
+                    np.ascontiguousarray(stream).ctypes.data_as(u8p),
+                    np.ascontiguousarray(lvl0).ctypes.data_as(u16p),
+                    np.ascontiguousarray(lvl_d).ctypes.data_as(i8p),
+                    np.ascontiguousarray(sigma_q).ctypes.data_as(u8p),
+                    np.ascontiguousarray(ends).ctypes.data_as(u8p),
+                    np.ascontiguousarray(esc).ctypes.data_as(u8p),
+                    np.ascontiguousarray(lvl_esc).ctypes.data_as(u16p),
+                    np.ascontiguousarray(wide_b).ctypes.data_as(u8p),
+                    self._key_words[0], self._key_words[1],
+                    coff.ctypes.data_as(i32p), ridx.ctypes.data_as(i32p),
+                    B, T, K, B_s, cap_esc_s, cap_wide_s, cap_lvl_s,
+                    noise_mode, sigma_scale_pa, sigma_tail_pa,
+                    np.float32(knobs.noise_std), scale_s, dig, rng_f, offset,
+                    flat.ctypes.data_as(i16p),
+                    counts.ctypes.data_as(i32p),
+                )
             if total == ctypes.c_size_t(-1).value:
                 raise RuntimeError(
                     "wire-format exception overflow: escape buffer bounds "
@@ -464,145 +455,143 @@ class EventWireDecoder:
             return flat[:total], counts
 
         # ---- numpy fallback (parity oracle) ----
-        _t = time.perf_counter()
+        with tracing.span(self.spans["rebuild"], cpu=True):
+            def shard_excl_offsets(row_counts):
+                """Per-row exclusive start offsets into the row's shard-local flat
+                buffer (rows are shard-major)."""
+                cum = np.cumsum(row_counts) - row_counts  # global exclusive
+                base = np.repeat(cum[0::B_s], B_s)[:B]
+                return (cum - base).astype(np.intp)
 
-        def shard_excl_offsets(row_counts):
-            """Per-row exclusive start offsets into the row's shard-local flat
-            buffer (rows are shard-major)."""
-            cum = np.cumsum(row_counts) - row_counts  # global exclusive
-            base = np.repeat(cum[0::B_s], B_s)[:B]
-            return (cum - base).astype(np.intp)
+            shard = rows // B_s  # (B, 1)
 
-        shard = rows // B_s  # (B, 1)
-
-        # Event levels: u16 anchor + i8 deltas vs the previous non-zero
-        # level; -128 = zero level, -127 = escape (exact u16 in lvl_esc).
-        lvl_d_i = lvl_d.astype(np.int32)
-        is_zero_l = lvl_d_i == -128
-        is_esc_l = lvl_d_i == -127
-        lrank = np.cumsum(is_esc_l, axis=1) - is_esc_l
-        lvl_off = shard_excl_offsets(is_esc_l.sum(axis=1))
-        glidx = shard * cap_lvl_s + lvl_off[:, None] + lrank
-        if is_esc_l.any():
-            cap_end = np.broadcast_to((shard + 1) * cap_lvl_s, glidx.shape)
-            if (glidx[is_esc_l] >= cap_end[is_esc_l]).any():
-                raise RuntimeError(
-                    "wire-format exception overflow: level-escape buffer "
-                    "bounds exceeded at the ULP event tier"
+            # Event levels: u16 anchor + i8 deltas vs the previous non-zero
+            # level; -128 = zero level, -127 = escape (exact u16 in lvl_esc).
+            lvl_d_i = lvl_d.astype(np.int32)
+            is_zero_l = lvl_d_i == -128
+            is_esc_l = lvl_d_i == -127
+            lrank = np.cumsum(is_esc_l, axis=1) - is_esc_l
+            lvl_off = shard_excl_offsets(is_esc_l.sum(axis=1))
+            glidx = shard * cap_lvl_s + lvl_off[:, None] + lrank
+            if is_esc_l.any():
+                cap_end = np.broadcast_to((shard + 1) * cap_lvl_s, glidx.shape)
+                if (glidx[is_esc_l] >= cap_end[is_esc_l]).any():
+                    raise RuntimeError(
+                        "wire-format exception overflow: level-escape buffer "
+                        "bounds exceeded at the ULP event tier"
+                    )
+            lvl_esc_flat = lvl_esc.reshape(-1)
+            lvl_vals = lvl_esc_flat[
+                np.minimum(glidx, lvl_esc_flat.size - 1)
+            ].astype(np.int32)
+            K = lvl_d.shape[1]
+            levels = np.zeros((B, K + 1), np.int32)
+            levels[:, 0] = lvl0
+            prev = np.where(lvl0 != 0, lvl0, 0).astype(np.int32)
+            for e in range(1, K + 1):
+                col = np.where(
+                    is_zero_l[:, e - 1], 0,
+                    np.where(is_esc_l[:, e - 1], lvl_vals[:, e - 1],
+                             prev + lvl_d_i[:, e - 1]),
                 )
-        lvl_esc_flat = lvl_esc.reshape(-1)
-        lvl_vals = lvl_esc_flat[
-            np.minimum(glidx, lvl_esc_flat.size - 1)
-        ].astype(np.int32)
-        K = lvl_d.shape[1]
-        levels = np.zeros((B, K + 1), np.int32)
-        levels[:, 0] = lvl0
-        prev = np.where(lvl0 != 0, lvl0, 0).astype(np.int32)
-        for e in range(1, K + 1):
-            col = np.where(
-                is_zero_l[:, e - 1], 0,
-                np.where(is_esc_l[:, e - 1], lvl_vals[:, e - 1],
-                         prev + lvl_d_i[:, e - 1]),
+                levels[:, e] = col
+                prev = np.where(col != 0, col, prev)
+
+            W = stream.shape[1]
+            sym = np.empty((B, W * 4), np.uint8)
+            for j in range(4):
+                sym[:, j::4] = (stream >> (2 * j)) & 3
+            sym = sym[:, :T]
+            d = (sym == 1).astype(np.int32) - (sym == 2).astype(np.int32)
+            is_esc = sym == 3
+            esc_i = is_esc.astype(np.int32)
+            # Flat nibble index per escape: shard base + derived row offset +
+            # row-local exclusive rank (row-major stream order, as packed).
+            rank = np.cumsum(esc_i, axis=1) - esc_i
+            esc_off = shard_excl_offsets(esc_i.sum(axis=1))
+            gidx = shard * cap_esc_s + esc_off[:, None] + rank
+            if is_esc.any():
+                cap_end = np.broadcast_to((shard + 1) * cap_esc_s, gidx.shape)
+                if (gidx[is_esc] >= cap_end[is_esc]).any():
+                    raise RuntimeError(
+                        "wire-format exception overflow: escape buffer bounds "
+                        "exceeded at the ULP event tier"
+                    )
+            nib_flat = np.empty(esc.size * 2, np.uint8)
+            esc_flat = esc.reshape(-1)
+            nib_flat[0::2] = esc_flat & 0xF
+            nib_flat[1::2] = esc_flat >> 4
+            esc_vals = nib_flat[np.minimum(gidx, nib_flat.size - 1)].astype(
+                np.int32
+            ) - 8
+            is_wide = is_esc & (esc_vals == 0)  # nibble 8 marks a wide jump
+            wide_i = is_wide.astype(np.int32)
+            wrank = np.cumsum(wide_i, axis=1) - wide_i
+            wide_off = shard_excl_offsets(wide_i.sum(axis=1))
+            gwidx = shard * cap_wide_s + wide_off[:, None] + wrank
+            if is_wide.any():
+                cap_end = np.broadcast_to((shard + 1) * cap_wide_s, gwidx.shape)
+                if (gwidx[is_wide] >= cap_end[is_wide]).any():
+                    raise RuntimeError(
+                        "wire-format exception overflow: wide-jump buffer "
+                        "bounds exceeded at the ULP event tier"
+                    )
+            # The wide buffer ships as bytes (one per row, zero-padded); each
+            # shard's i32 slots occupy the first cap_wide_s*4 bytes of its span.
+            wb = wide_b.reshape(dp, B_s)
+            wide_flat = np.zeros(max(dp * cap_wide_s, 1), np.int32)
+            if cap_wide_s:
+                for sh in range(dp):
+                    wide_flat[sh * cap_wide_s:(sh + 1) * cap_wide_s] = np.ascontiguousarray(
+                        wb[sh, :cap_wide_s * 4]).view(np.int32)
+            wide_vals = wide_flat[np.minimum(gwidx, wide_flat.size - 1)]
+            d = np.where(is_esc, np.where(is_wide, wide_vals, esc_vals), d)
+
+            # segment machinery identical to the 4-bit tier
+            ends_i = ends.astype(np.intp)
+            seg = np.zeros((B, T), np.intp)
+            in_range = ends_i < T
+            np.add.at(seg, (np.broadcast_to(rows, ends_i.shape)[in_range],
+                            ends_i[in_range]), 1)
+            np.cumsum(seg, axis=1, out=seg)
+            starts_ext = np.concatenate(
+                [np.zeros((B, 1), np.intp), ends_i], axis=1
             )
-            levels[:, e] = col
-            prev = np.where(col != 0, col, prev)
+            start_frame = np.take_along_axis(starts_ext, seg, 1)
+            t_grid = np.arange(T, dtype=np.intp)[None, :]
+            d[t_grid == start_frame] = 0
+            np.cumsum(d, axis=1, out=d)
+            np.minimum(start_frame, T - 1, out=start_frame)
+            C_start = np.take_along_axis(d, start_frame, 1)
+            level_i = np.take_along_axis(levels.astype(np.int32), seg, 1)
+            ord_ = level_i + d - C_start  # (B, T) bf16 bit ordinals
 
-        W = stream.shape[1]
-        sym = np.empty((B, W * 4), np.uint8)
-        for j in range(4):
-            sym[:, j::4] = (stream >> (2 * j)) & 3
-        sym = sym[:, :T]
-        d = (sym == 1).astype(np.int32) - (sym == 2).astype(np.int32)
-        is_esc = sym == 3
-        esc_i = is_esc.astype(np.int32)
-        # Flat nibble index per escape: shard base + derived row offset +
-        # row-local exclusive rank (row-major stream order, as packed).
-        rank = np.cumsum(esc_i, axis=1) - esc_i
-        esc_off = shard_excl_offsets(esc_i.sum(axis=1))
-        gidx = shard * cap_esc_s + esc_off[:, None] + rank
-        if is_esc.any():
-            cap_end = np.broadcast_to((shard + 1) * cap_esc_s, gidx.shape)
-            if (gidx[is_esc] >= cap_end[is_esc]).any():
-                raise RuntimeError(
-                    "wire-format exception overflow: escape buffer bounds "
-                    "exceeded at the ULP event tier"
-                )
-        nib_flat = np.empty(esc.size * 2, np.uint8)
-        esc_flat = esc.reshape(-1)
-        nib_flat[0::2] = esc_flat & 0xF
-        nib_flat[1::2] = esc_flat >> 4
-        esc_vals = nib_flat[np.minimum(gidx, nib_flat.size - 1)].astype(
-            np.int32
-        ) - 8
-        is_wide = is_esc & (esc_vals == 0)  # nibble 8 marks a wide jump
-        wide_i = is_wide.astype(np.int32)
-        wrank = np.cumsum(wide_i, axis=1) - wide_i
-        wide_off = shard_excl_offsets(wide_i.sum(axis=1))
-        gwidx = shard * cap_wide_s + wide_off[:, None] + wrank
-        if is_wide.any():
-            cap_end = np.broadcast_to((shard + 1) * cap_wide_s, gwidx.shape)
-            if (gwidx[is_wide] >= cap_end[is_wide]).any():
-                raise RuntimeError(
-                    "wire-format exception overflow: wide-jump buffer "
-                    "bounds exceeded at the ULP event tier"
-                )
-        # The wide buffer ships as bytes (one per row, zero-padded); each
-        # shard's i32 slots occupy the first cap_wide_s*4 bytes of its span.
-        wb = wide_b.reshape(dp, B_s)
-        wide_flat = np.zeros(max(dp * cap_wide_s, 1), np.int32)
-        if cap_wide_s:
-            for sh in range(dp):
-                wide_flat[sh * cap_wide_s:(sh + 1) * cap_wide_s] = np.ascontiguousarray(
-                    wb[sh, :cap_wide_s * 4]).view(np.int32)
-        wide_vals = wide_flat[np.minimum(gwidx, wide_flat.size - 1)]
-        d = np.where(is_esc, np.where(is_wide, wide_vals, esc_vals), d)
+            bits16 = ord_.astype(np.uint16)
+            p = (bits16.astype(np.uint32) << 16).view(np.float32)
+            # Corrupt wire bits may hold NaN/inf/near-max bf16 patterns; the f32
+            # chain then overflows by design and saturate_i16 defines the result
+            # (C++ float arithmetic does the same silently), so suppress numpy's
+            # intermediate-overflow warnings rather than leak them per batch.
+            with np.errstate(over="ignore", invalid="ignore"):
+                p = p * scale_s  # exact bf16 -> f32 pred, then the device's chain
 
-        # segment machinery identical to the 4-bit tier
-        ends_i = ends.astype(np.intp)
-        seg = np.zeros((B, T), np.intp)
-        in_range = ends_i < T
-        np.add.at(seg, (np.broadcast_to(rows, ends_i.shape)[in_range],
-                        ends_i[in_range]), 1)
-        np.cumsum(seg, axis=1, out=seg)
-        starts_ext = np.concatenate(
-            [np.zeros((B, 1), np.intp), ends_i], axis=1
-        )
-        start_frame = np.take_along_axis(starts_ext, seg, 1)
-        t_grid = np.arange(T, dtype=np.intp)[None, :]
-        d[t_grid == start_frame] = 0
-        np.cumsum(d, axis=1, out=d)
-        np.minimum(start_frame, T - 1, out=start_frame)
-        C_start = np.take_along_axis(d, start_frame, 1)
-        level_i = np.take_along_axis(levels.astype(np.int32), seg, 1)
-        ord_ = level_i + d - C_start  # (B, T) bf16 bit ordinals
-
-        bits16 = ord_.astype(np.uint16)
-        p = (bits16.astype(np.uint32) << 16).view(np.float32)
-        # Corrupt wire bits may hold NaN/inf/near-max bf16 patterns; the f32
-        # chain then overflows by design and saturate_i16 defines the result
-        # (C++ float arithmetic does the same silently), so suppress numpy's
-        # intermediate-overflow warnings rather than leak them per batch.
-        with np.errstate(over="ignore", invalid="ignore"):
-            p = p * scale_s  # exact bf16 -> f32 pred, then the device's chain
-
-            if noise_mode == 0:
-                pn = p
-            else:
-                if noise_mode == 2:
-                    sigma_ev = np.concatenate(
-                        [sigma_q.astype(np.float32) * sigma_scale_pa,
-                         np.full((B, 1), sigma_tail_pa, np.float32)], axis=1,
-                    )  # (B, K+1) pA
-                    sigma_f = np.take_along_axis(sigma_ev, seg, 1)
+                if noise_mode == 0:
+                    pn = p
                 else:
-                    sigma_f = np.float32(knobs.noise_std)
-                pn = np.where(p != 0.0, p + gauss * sigma_f, p)
-                np.maximum(pn, np.float32(0.0), out=pn)
-            keep = pn != 0.0
-            keep &= read_idx[:, None] >= 0
-            out_f = (pn * dig) / rng_f - offset
-            np.rint(out_f, out=out_f)
-            counts = keep.sum(axis=1).astype(np.int32)
-            res = saturate_i16(out_f[keep]), counts
-        self.timers["rebuild"] += time.perf_counter() - _t
+                    if noise_mode == 2:
+                        sigma_ev = np.concatenate(
+                            [sigma_q.astype(np.float32) * sigma_scale_pa,
+                             np.full((B, 1), sigma_tail_pa, np.float32)], axis=1,
+                        )  # (B, K+1) pA
+                        sigma_f = np.take_along_axis(sigma_ev, seg, 1)
+                    else:
+                        sigma_f = np.float32(knobs.noise_std)
+                    pn = np.where(p != 0.0, p + gauss * sigma_f, p)
+                    np.maximum(pn, np.float32(0.0), out=pn)
+                keep = pn != 0.0
+                keep &= read_idx[:, None] >= 0
+                out_f = (pn * dig) / rng_f - offset
+                np.rint(out_f, out=out_f)
+                counts = keep.sum(axis=1).astype(np.int32)
+                res = saturate_i16(out_f[keep]), counts
         return res

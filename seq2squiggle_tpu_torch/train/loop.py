@@ -40,6 +40,7 @@ plots run in float32 on the plain blocks, so no kernel runs inside them.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import logging
 import os
@@ -49,7 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import prng
+from .. import prng, tracing
 from ..device import resolve_device
 from ..models.fft_model import (
     compute_dtype,
@@ -131,21 +132,27 @@ def _dp_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tenso
 def make_train_step(config: dict, optimizer: Optimizer, mesh=None):
     """(params, opt_state, batch, mask, key) -> metrics; parameters and the
     optimizer state are updated in place. Under a mesh: the rank's slab and
-    shards, the gradients summed over dp, the metrics the global batch's."""
+    shards, the gradients summed over dp, the metrics the global batch's.
+    Each call is a `train.step` span (tracing.py, switched on or off here),
+    its id the call's number, with a `train.masks` span in it for each
+    dropout draw."""
+    tracing.switch_from_env()
+    calls = itertools.count()
 
     def step(params, opt_state, batch, mask, key):
-        paths, leaves = zip(*tree_leaves(params))
-        _, metrics = loss_fn(params, batch, mask, config, key, mesh)
-        grads = dp_sum_all(torch.autograd.grad(metrics["total_loss"], leaves), mesh)
-        metrics = _dp_metrics(metrics, mesh)
-        # the global norm and each leaf's (grad_norm/<a/b/0/c>, the JAX
-        # package's names), whole leaves under tp
-        squares = leaf_square_sums(grads, optimizer.axes, mesh)
-        metrics["grad_norm"] = torch.sqrt(sum(squares.unbind()))
-        metrics.update({f"grad_norm/{'/'.join(p)}": n
-                        for p, n in zip(paths, squares.sqrt().unbind())})
-        optimizer.update(grads, opt_state, leaves)
-        return metrics
+        with tracing.span("train.step", next(calls)):
+            paths, leaves = zip(*tree_leaves(params))
+            _, metrics = loss_fn(params, batch, mask, config, key, mesh)
+            grads = dp_sum_all(torch.autograd.grad(metrics["total_loss"], leaves), mesh)
+            metrics = _dp_metrics(metrics, mesh)
+            # the global norm and each leaf's (grad_norm/<a/b/0/c>, the JAX
+            # package's names), whole leaves under tp
+            squares = leaf_square_sums(grads, optimizer.axes, mesh)
+            metrics["grad_norm"] = torch.sqrt(sum(squares.unbind()))
+            metrics.update({f"grad_norm/{'/'.join(p)}": n
+                            for p, n in zip(paths, squares.sqrt().unbind())})
+            optimizer.update(grads, opt_state, leaves)
+            return metrics
 
     return step
 
