@@ -199,7 +199,19 @@ Phases (any failure raises and the script exits non-zero):
      a wrapped predict_step), records equal to phase 4's, 8 one-block
      launches a batch, and kSamples/s against one device in 3 alternating
      rounds; each run's kSamples/s and stage timers per batch printed beside
-     the card's name and power limit.
+     the card's name and power limit;
+ 18. the Gamma dwell kernel (ops/threefry.py, csrc/threefry.cu) against its
+     plain version, the torch ops of prng.py and sampling.py on the card, at
+     (1024, 16) and a ragged (37, 16), `a` log-uniform over [0.01, 60] (the
+     boost below 1), rate over [0.05, 5], an eighth of the rows padding
+     (read index -1): the chunk keys bit-equal (from the draw's launch and
+     from the keys-only one), the draws within rtol 1e-5 on >= 99.9 % and
+     finite, the rounded durations equal on >= 99.9 % and equal to the
+     kernel's own draws clamped and rounded; the share of draws equal bit for
+     bit printed; median times of one launch and of the plain version at
+     (1024, 16); then phase 4's run again with the spans on: one launch a
+     batch, `sampling.gamma_plain` absent and `sampling.gamma_kernel` the
+     batches' rows, its records equal one for one to phase 4's.
 
 Beside the kernels (phases 2, 8, 11, 12), one library call that computes the
 same function is timed and held against the plain version at phase 2's bf16
@@ -257,6 +269,12 @@ VARIANT_EDGES = (15, 16, 17, 37)  # phase 12: 16-row slabs; 37 pads to 40 on the
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense FLOP/s by type.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# 32-bit integer operations: 64 lanes an SM (the Hopper architecture white
+# paper) x 132 SMs x 1980 MHz
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+GAMMA_K = 16  # phase 18: k-mers a chunk row
+GAMMA_RAGGED = 37  # phase 18: a batch that fills no whole 256-thread block
+THREEFRY_OPS = 80  # integer operations of one threefry block (csrc/threefry.cuh)
 
 
 def log(msg: str) -> None:
@@ -2106,6 +2124,122 @@ def _stage_threads() -> list:
     return sorted(t.name for t in threading.enumerate() if t.name.startswith("seq2squiggle-"))
 
 
+def gamma_inputs(B: int, seed: int, dev):
+    """Phase 18's inputs: the run key of a seed that fills both words, conc
+    log-uniform over [0.01, 60] (a < 1 takes the boost), rate over
+    [0.05, 5], read indices with the last eighth of the rows padding (-1)
+    and chunk offsets, all on `dev`."""
+    from seq2squiggle_tpu_torch import prng
+
+    rng = np.random.default_rng(seed)
+    K = GAMMA_K
+    conc = np.exp(rng.uniform(np.log(0.01), np.log(60.0), (B, K))).astype(np.float32)
+    rate = np.exp(rng.uniform(np.log(0.05), np.log(5.0), (B, K))).astype(np.float32)
+    read_idx = rng.integers(0, 2 ** 31 - 1, B).astype(np.int32)
+    read_idx[B - max(1, B // 8):] = -1
+    chunk_off = rng.integers(0, 400, B).astype(np.int32)
+    on_dev = [torch.from_numpy(a).to(dev) for a in (read_idx, chunk_off, conc, rate)]
+    return (prng.key((seed << 32) + 2 ** 31 + seed, dev), *on_dev)
+
+
+def hold_gamma_kernel(dev, B: int, seed: int = SEED, min_duration: float = 3.0) -> dict:
+    """Phase 18's bars at batch B: the Gamma dwell kernel against its plain
+    version on the card (keys bit-equal, draws rtol 1e-5 on >= 99.9 %,
+    rounded durations equal on >= 99.9 %). Returns the shares."""
+    from seq2squiggle_tpu_torch import prng, sampling
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    base, read_idx, chunk_off, conc, rate = gamma_inputs(B, seed, dev)
+    keys, dur = threefry.chunk_keys_and_durations(base, read_idx, chunk_off, conc, rate,
+                                                  min_duration)
+    ref_keys = threefry.chunk_keys_reference(base, read_idx, chunk_off)
+    ref_dur = threefry.durations_reference(prng.fold_in(ref_keys, 1), conc, rate, min_duration)
+    draws = threefry.sample_gamma_durations(prng.fold_in(keys, 1), conc, rate)
+    ref = sampling.sample_gamma_durations(prng.fold_in(ref_keys, 1), conc, rate)
+    own = torch.round(draws.clamp_min(1.0).clamp_min(min_duration)).to(torch.int32)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(keys, ref_keys), f"gamma kernel B={B}: chunk keys differ")
+    check(torch.equal(threefry.chunk_keys(base, read_idx, chunk_off), ref_keys),
+          f"gamma kernel B={B}: the keys-only launch's keys differ")
+    check(bool(torch.isfinite(draws).all()), f"gamma kernel B={B}: non-finite draws")
+    got = {
+        "B": B,
+        "exact_share": (draws.view(torch.int32) == ref.view(torch.int32)).float().mean().item(),
+        "close_share": 1.0 - outside(draws, ref, 1e-5, 0.0),
+        "durations_equal": (dur == ref_dur).float().mean().item(),
+        "max_rel_err": ((draws - ref).abs() / ref.abs().clamp_min(1e-30)).max().item(),
+    }
+    check(got["close_share"] >= 0.999, f"gamma kernel B={B}: draws within rtol 1e-5 on only "
+          f"{got['close_share']:.5f}")
+    check(got["durations_equal"] >= 0.999, f"gamma kernel B={B}: durations equal on only "
+          f"{got['durations_equal']:.5f}")
+    check(torch.equal(dur, own), f"gamma kernel B={B}: durations are not its draws rounded")
+    return got
+
+
+def gamma_work(B: int, K: int, boosted: int):
+    """Bytes and integer operations the Gamma dwell draw needs at least: conc
+    and rate in, the counts and chunk keys out, the indices in; 3 threefry
+    blocks of key chain and 5 of a first round an element, 2 more for each
+    boosted element (a < 1)."""
+    n_bytes = B * K * (4 + 4 + 4) + B * (4 + 4 + 16) + 16
+    return n_bytes, (8 * B * K + 2 * boosted) * THREEFRY_OPS
+
+
+def phase_gamma(dev, main_recs, smi) -> dict:
+    """Phase 18: the Gamma dwell kernel against its plain version, its time,
+    and the main path through it. Returns what it measured."""
+    from seq2squiggle_tpu_torch import prng, tracing
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    t_phase = time.perf_counter()
+    held = {B: hold_gamma_kernel(dev, B) for B in (BATCH, GAMMA_RAGGED)}
+    for B, got in held.items():
+        log(f"phase 18 gamma kernel vs plain B={B:4d} K={GAMMA_K}: keys bit-equal, draws "
+            f"exact {got['exact_share']:.6f}, within rtol 1e-5 {got['close_share']:.6f} "
+            f"(max rel err {got['max_rel_err']:.3g}), durations equal "
+            f"{got['durations_equal']:.6f}")
+
+    base, read_idx, chunk_off, conc, rate = gamma_inputs(BATCH, SEED, dev)
+    ms = median_ms(lambda: threefry.chunk_keys_and_durations(
+        base, read_idx, chunk_off, conc, rate, 3.0))
+
+    def plain():
+        keys = threefry.chunk_keys_reference(base, read_idx, chunk_off)
+        return keys, threefry.durations_reference(prng.fold_in(keys, 1), conc, rate, 3.0)
+
+    plain_ms = median_ms(plain, iters=5, warmup=1)
+    n_bytes, ops = gamma_work(BATCH, GAMMA_K, int((conc < 1.0).sum().item()))
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_INT32_OPS * 1e3
+    bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    log(f"phase 18 gamma kernel ({BATCH}, {GAMMA_K}): {ms:.4f} ms a launch, plain version "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}) [{smi}]")
+
+    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+    try:
+        threefry.launches = 0
+        stats, _, _, recs = _predict_run(dev, "out.blow5", 100)
+        launches = threefry.launches
+    finally:
+        del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
+        tracing.switch_from_env()
+    n_batches = math.ceil(stats["chunks"] / BATCH)
+    timers = stats["timers"]
+    check(launches == n_batches, f"phase 18: {launches} gamma launches for {n_batches} batches")
+    check("sampling.gamma_plain" not in timers
+          and timers.get("sampling.gamma_kernel") == BATCH * n_batches,
+          f"phase 18: rows drawn {timers.get('sampling.gamma_kernel')} by the kernel, "
+          f"{timers.get('sampling.gamma_plain')} by the plain path, for {n_batches} batches")
+    _tier_runs_match("phase 18 against phase 4", recs, main_recs, exact=True)
+    log(f"phase 18 main path: {launches} gamma launches for {n_batches} batches, "
+        f"{timers['sampling.gamma_kernel']} rows by the kernel and none by the plain path, "
+        f"records equal to phase 4's; sampling {1e3 * timers['sampling'] / n_batches:.3f} ms "
+        f"a batch, {stats['ksamples_per_s']:.1f} kSamples/s [{smi}]")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return {"held": held, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches": launches}
+
+
 def phase_pipeline(dev, main_recs, smi) -> dict:
     """Phase 17: the run loop's host threads and the per-shard launching
     threads on the card. Returns what it measured."""
@@ -2328,6 +2462,7 @@ def main() -> int:
     phase_train_rest(dev, smi, pngs, warnings)
     core4 = phase_parallel(dev, recs)
     phase_pipeline(dev, recs, smi)
+    gamma = phase_gamma(dev, recs, smi)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
@@ -2423,6 +2558,16 @@ def main() -> int:
         dict(variant_entry("parts", "profile_parts2.py:109", variant_profile["stage_delta_ms"]),
              stage_delta_ms=variant_profile["stage_delta_ms"]),
         ablate_entry(),
+        {"name": "gamma_draw", "route": "cuda",
+         "source": "seq2squiggle_tpu_torch/csrc/threefry.cu",
+         "replaces": "no TPU kernel: seq2squiggle_tpu_torch/sampling.py:26 and the key chain "
+                     "of runtime/predict.py's decoder_output in torch ops",
+         "launches": gamma["launches"],
+         "max_abs_err": None, "max_rel_err": max(g["max_rel_err"] for g in gamma["held"].values()),
+         "ms": gamma["ms"], "plain_ms": gamma["plain_ms"], "bound_ms": gamma["bound_ms"],
+         "bound_by": gamma["bound_by"], "library_ms": None,
+         "shares_by_batch": {str(B): {k: v for k, v in g.items() if k != "B"}
+                             for B, g in gamma["held"].items()}},
     ]}
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seq2squiggle_tpu"))

@@ -37,8 +37,9 @@ from ..models.fft_model import (
     encoder_forward,
     noise_head,
 )
+from ..ops import threefry
 from ..ops.regulator import regulate_from_seg, segment_map
-from ..sampling import per_chunk_keys, sample_gamma_durations, sample_normal
+from ..sampling import sample_normal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,25 +73,30 @@ WIRE_EXC_SLOTS = {4: 12, 8: 24, 12: 4}
 WIRE_ESC_NIB_PER_ROW = 20
 
 
-def _compute_durations(params: dict, emb_out: torch.Tensor, keys: torch.Tensor,
-                       knobs: PredictKnobs, config: dict) -> torch.Tensor:
-    """Integer dwell counts per k-mer, (B, K) int32. The draws are the
-    `sampling` span (tracing.py), on the thread that launches them."""
+def _keys_and_durations(params: dict, emb_out: torch.Tensor, base_key: torch.Tensor,
+                        read_idx: torch.Tensor, chunk_off: torch.Tensor,
+                        knobs: PredictKnobs, config: dict):
+    """The per-chunk keys (B, 2) and the integer dwell counts per k-mer
+    (B, K) int32, drawn with the keys fold_in(chunk key, 1). The Gamma draw
+    and its key chain are one launch on the card (ops/threefry.py). The
+    draws are the `sampling` span (tracing.py), on the thread that launches
+    them."""
     B, K = emb_out.shape[:2]
     if knobs.duration_sampling:
         conc, rate = duration_gamma_params(params, emb_out, config)
         with tracing.span("sampling"):
-            dur = sample_gamma_durations(keys, conc, rate)
-        dur = dur.clamp_min(1.0).clamp_min(float(knobs.min_duration))
-    elif knobs.dwell_std > 0:
+            return threefry.chunk_keys_and_durations(base_key, read_idx, chunk_off, conc, rate,
+                                                     knobs.min_duration)
+    chunk_keys = threefry.chunk_keys(base_key, read_idx, chunk_off)
+    if knobs.dwell_std > 0:
         with tracing.span("sampling"):
-            noise = sample_normal(keys, (K,))
+            noise = sample_normal(prng.fold_in(chunk_keys, 1), (K,))
         dur = prng.fma(noise, prng.f32(knobs.dwell_std), prng.f32(knobs.dwell_mean))
         dur = dur.clamp_min(float(knobs.min_duration))
     else:
         dur = torch.full((B, K), knobs.dwell_mean, dtype=torch.float32,
                          device=emb_out.device)
-    return torch.round(dur).to(torch.int32)  # round half to even
+    return chunk_keys, torch.round(dur).to(torch.int32)  # round half to even
 
 
 def _stable_front_compact(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -144,9 +150,8 @@ def decoder_output(
     emb32 = emb_out.float()
     noise_stdev = noise_head(params, emb32, config)  # (B, K)
 
-    chunk_keys = prng.fold_in(per_chunk_keys(base_key, read_idx), chunk_off)
-    durations = _compute_durations(params, emb32, prng.fold_in(chunk_keys, 1),
-                                   knobs, config)
+    chunk_keys, durations = _keys_and_durations(params, emb32, base_key, read_idx, chunk_off,
+                                                knobs, config)
 
     seg_parts = segment_map(durations, T)
     expanded, noise_ext = regulate_from_seg(enc_out, seg_parts[2],

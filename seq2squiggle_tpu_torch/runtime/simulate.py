@@ -201,7 +201,7 @@ def stage_timers(got: tracing.Totals, decoders: dict, writer) -> dict:
         "sampling": got.wall("sampling"),
         "job_setup": got.wall("job.setup"),
     }
-    timers.update(got.counts)  # n_t<bits>, decode_t<bits>
+    timers.update(got.counts)  # n_t<bits>, decode_t<bits>, sampling.gamma_kernel/_plain
     for bits, dec in decoders.items():
         for stage, name in dec.spans.items():
             timers[f"event{bits}_{stage}"] = got.wall(name)

@@ -26,7 +26,8 @@ from ..models.fft_model import (
     noise_head,
 )
 from ..ops.regulator import length_regulate
-from ..sampling import per_chunk_keys, sample_gamma_durations, sample_normal
+from ..ops.threefry import sample_gamma_durations
+from ..sampling import per_chunk_keys, sample_normal
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 

@@ -83,11 +83,11 @@ def _durations(weights, cfg, knob_kw, batch):
     keys = jax.vmap(lambda c, o: jax.random.fold_in(jax.random.fold_in(c, o), 1))(
         per_chunk_keys(jax.random.key(SEED), jnp.asarray(ridx)), jnp.asarray(coff))
     jd = np.asarray(jax_durations(jp, jnp.asarray(emb), keys, JaxKnobs(**knob_kw), cfg))
-    tkeys = prng.fold_in(prng.fold_in(prng.fold_in(prng.key(SEED), torch.from_numpy(ridx)),
-                                      torch.from_numpy(coff)), 1)
-    td = tpredict._compute_durations(to_device(tp, torch.device("cpu"), torch.float32),
-                                     torch.from_numpy(emb), tkeys,
-                                     tpredict.PredictKnobs(**knob_kw), cfg).numpy()
+    _, td = tpredict._keys_and_durations(to_device(tp, torch.device("cpu"), torch.float32),
+                                         torch.from_numpy(emb), prng.key(SEED),
+                                         torch.from_numpy(ridx), torch.from_numpy(coff),
+                                         tpredict.PredictKnobs(**knob_kw), cfg)
+    td = td.numpy()
     return jd, td
 
 
