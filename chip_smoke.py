@@ -211,7 +211,21 @@ Phases (any failure raises and the script exits non-zero):
      bit printed; median times of one launch and of the plain version at
      (1024, 16); then phase 4's run again with the spans on: one launch a
      batch, `sampling.gamma_plain` absent and `sampling.gamma_kernel` the
-     batches' rows, its records equal one for one to phase 4's.
+     batches' rows, its records equal one for one to phase 4's;
+ 19. the train step's threefry kernels (ops/threefry.py, csrc/threefry.cu)
+     against the torch ops of prng.py on the card: fold_in, split and
+     split(fold_in) of one key and of a batch of keys, and the dropout draw's
+     bool mask and bf16 and f32 scales at keep 0.8 and 0.9, bit-equal, at
+     (512, 250, 64), (512, 16, 64), a ragged (37, 250, 64) and a dp rank's
+     slab (rows 256..383 of a 512-row draw); one `make_train_step` call at
+     the default config (bf16, the block rung, batch 512) through the
+     kernels and through the torch ops: loss and every gradient bit-equal;
+     median times of one (512, 250, 64) bf16 draw and of one step's 11
+     draws, kernel and plain, beside their bound; then the `train` command
+     (one epoch of 20 steps, no plots) with the spans on: 16 launches a step
+     (11 draws, 5 key derivations), `train.masks_plain` absent and
+     `train.masks_kernel` the 11 draws' elements a step, 11 `train.masks`
+     spans a step.
 
 Beside the kernels (phases 2, 8, 11, 12), one library call that computes the
 same function is timed and held against the plain version at phase 2's bf16
@@ -275,6 +289,10 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 GAMMA_K = 16  # phase 18: k-mers a chunk row
 GAMMA_RAGGED = 37  # phase 18: a batch that fills no whole 256-thread block
 THREEFRY_OPS = 80  # integer operations of one threefry block (csrc/threefry.cuh)
+# phase 19: (shape, rows of the global draw or None, first row); the last a dp rank's slab
+MASK_CASES = (((512, 250, 64), None, 0), ((512, 16, 64), None, 0), ((37, 250, 64), None, 0),
+              ((128, 250, 64), 512, 256))
+MASK_KEEPS = (0.8, 0.9)
 
 
 def log(msg: str) -> None:
@@ -2240,6 +2258,222 @@ def phase_gamma(dev, main_recs, smi) -> dict:
             "bound_by": bound_by, "launches": launches}
 
 
+def mask_key(dev, seed: int = SEED):
+    """Phase 19's key: a seed that fills both words."""
+    from seq2squiggle_tpu_torch import prng
+
+    return prng.key((seed << 32) + 2 ** 31 + seed, dev)
+
+
+def hold_key_kernel(dev, seed: int = SEED) -> int:
+    """Phase 19's key bars: fold_in, split and split(fold_in) through the
+    kernel bit-equal to prng.py's torch ops on the card, for one key and a
+    batch of 37. Returns the number of keys held."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    key = mask_key(dev, seed)
+    batch = prng.split(key, 37)
+    pairs = [(threefry.fold_in(k, d), prng.fold_in(k, d))
+             for k in (key, batch) for d in (0, 1, 7, 10_000, 2 ** 32 - 1)]
+    pairs += [(threefry.split(k, n), prng.split(k, n)) for k in (key, batch) for n in (2, 4)]
+    pairs += [(threefry.fold_in_split(k, n), threefry.fold_in_split_reference(k, n))
+              for k in (key, batch) for n in (1, 2)]
+    torch.cuda.synchronize(dev)
+    for i, (got, ref) in enumerate(pairs):
+        check(got.shape == ref.shape and torch.equal(got, ref), f"key derivation {i} differs")
+    return sum(ref.numel() // 2 for _, ref in pairs)
+
+
+def hold_mask_kernel(dev, shape, rows=None, start: int = 0, seed: int = SEED) -> dict:
+    """Phase 19's mask bars at one shape (rows [start, start + shape[0]) of a
+    draw of `rows`): the bool mask and the bf16 and f32 scales through the
+    kernel bit-equal to prng.py's torch ops on the card, at each keep of
+    MASK_KEEPS. Returns the kept shares and the largest absolute difference
+    between the kernel's masks or scales and the plain path's (0 when they
+    are bit-equal)."""
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    key, kept, err = mask_key(dev, seed), {}, 0.0
+    for keep in MASK_KEEPS:
+        got = threefry.bernoulli(key, keep, shape, rows, start)
+        ref = threefry.bernoulli_reference(key, keep, shape, rows, start)
+        err = max(err, (got.int() - ref.int()).abs().max().item())
+        check(got.dtype == torch.bool and torch.equal(got, ref),
+              f"mask {shape} rows {rows} start {start} keep {keep}: differs")
+        for dt, bits in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+            got_s = threefry.dropout_scales(key, keep, shape, dt, rows, start)
+            ref_s = threefry.dropout_scales_reference(key, keep, shape, dt, rows, start)
+            err = max(err, (got_s.float() - ref_s.float()).abs().max().item())
+            check(got_s.dtype == dt and torch.equal(got_s.view(bits), ref_s.view(bits)),
+                  f"scales {dt} {shape} rows {rows} start {start} keep {keep}: differ")
+        kept[keep] = got.float().mean().item()
+    return {"kept": kept, "max_abs_err": err}
+
+
+def _plain_draws():
+    """The train step's threefry through prng.py's torch ops on any device."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    return mock.patch.multiple(threefry, fold_in=prng.fold_in, split=prng.split,
+                               fold_in_split=threefry.fold_in_split_reference,
+                               bernoulli=threefry.bernoulli_reference,
+                               dropout_scales=threefry.dropout_scales_reference)
+
+
+def hold_train_step(dev, B: int = TRAIN_BATCH) -> dict:
+    """One `make_train_step` call at the default config (bf16, the block
+    rung) through the kernels and through prng.py's torch ops, from the same
+    parameters, batch and key: the loss and every gradient bit-equal.
+    Returns the loss and the leaves held."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.train.loop import make_train_step
+    from seq2squiggle_tpu_torch.train.optimizers import build_optimizer
+
+    cfg = load_config(None)
+    host = fft_model.init_params(cfg, prng.key(SEED))
+    batch, mask = _train_batch(cfg, B, seed=6)
+    batch, mask = {k: v.to(dev) for k, v in batch.items()}, mask.to(dev)
+
+    def one_step():
+        params = fft_model.to_train_params(host, dev)
+        opt = build_optimizer(cfg, 100)
+        state = opt.init([v for _, v in fft_model.tree_leaves(params)])
+        seen = []
+        update = opt.update
+        opt.update = lambda grads, *a: (seen.extend(g.clone() for g in grads), update(grads, *a))
+        metrics = make_train_step(cfg, opt)(params, state, batch, mask,
+                                            prng.fold_in(prng.key(SEED, dev), 3))
+        return metrics["total_loss"], seen
+
+    loss, grads = one_step()
+    with _plain_draws():
+        plain_loss, plain_grads = one_step()
+    torch.cuda.synchronize(dev)
+    check(len(grads) == len(plain_grads) > 0, "train step: no gradients seen")
+    check(torch.equal(loss, plain_loss), f"train step loss {loss.item()} vs plain "
+          f"{plain_loss.item()}")
+    differ = [i for i, (a, b) in enumerate(zip(grads, plain_grads)) if not torch.equal(a, b)]
+    check(not differ, f"train step: gradients {differ} differ from the plain draws'")
+    return {"loss": loss.item(), "leaves": len(grads)}
+
+
+def step_draws(cfg: dict, B: int) -> list:
+    """The 11 dropout draws of one default train step: (kind, shape), the
+    encoder's 4 and the heads' 3 masks at (B, K, D), the decoder's 4 scales
+    at (B, T, D)."""
+    K, T, D = cfg["max_dna_len"], cfg["max_signal_len"], cfg["dmodel"]
+    return [("mask", (B, K, D))] * 7 + [("scales", (B, T, D))] * 4
+
+
+def phase_masks(dev, smi) -> dict:
+    """Phase 19: the train step's threefry kernels against prng.py's torch
+    ops, a train step through each, their times, and the `train` command
+    through the kernels. Returns what it measured."""
+    from seq2squiggle_tpu_torch import prng, tracing
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    t_phase = time.perf_counter()
+    n_keys = hold_key_kernel(dev)
+    log(f"phase 19 keys: {n_keys} keys from fold_in, split and split(fold_in) bit-equal to "
+        f"prng.py's on the card")
+    held = {}
+    for shape, rows, start in MASK_CASES:
+        held[str(shape) + (f" rows {start}..{start + shape[0] - 1} of {rows}" if rows else "")] = \
+            got = hold_mask_kernel(dev, shape, rows, start)
+        log(f"phase 19 masks {shape} rows {rows or shape[0]} from {start}: bool, bf16 and f32 "
+            f"bit-equal to prng.py's at keep {MASK_KEEPS} (max abs err {got['max_abs_err']}), "
+            f"kept shares {got['kept']}")
+    step = hold_train_step(dev)
+    log(f"phase 19 train step (bf16, block, batch {TRAIN_BATCH}): loss {step['loss']:.6f} and "
+        f"{step['leaves']} gradient leaves bit-equal, kernels against prng.py's torch ops")
+
+    cfg = load_config(None)
+    key = mask_key(dev)
+    draws = step_draws(cfg, TRAIN_BATCH)
+    keys = prng.split(key, len(draws))
+
+    def run(bernoulli, scales):
+        for (kind, shape), k in zip(draws, keys):
+            if kind == "mask":
+                bernoulli(k, 0.8, shape)
+            else:
+                scales(k, 0.8, shape, torch.bfloat16)
+
+    big = (TRAIN_BATCH, cfg["max_signal_len"], cfg["dmodel"])
+    times = {
+        "draw_ms": median_ms(lambda: threefry.dropout_scales(key, 0.8, big, torch.bfloat16)),
+        "draw_plain_ms": median_ms(
+            lambda: threefry.dropout_scales_reference(key, 0.8, big, torch.bfloat16),
+            iters=5, warmup=1),
+        "step_draws_ms": median_ms(lambda: run(threefry.bernoulli, threefry.dropout_scales)),
+        "step_draws_plain_ms": median_ms(
+            lambda: run(threefry.bernoulli_reference, threefry.dropout_scales_reference),
+            iters=5, warmup=1),
+    }
+    n_elems = sum(math.prod(shape) for _, shape in draws)
+    out_bytes = sum(math.prod(shape) * (1 if kind == "mask" else 2) for kind, shape in draws)
+    for name, n, n_bytes in (("draw", math.prod(big), 2 * math.prod(big)),
+                             ("step_draws", n_elems, out_bytes)):
+        by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, n * THREEFRY_OPS / PEAK_INT32_OPS * 1e3
+        times[f"{name}_bound_ms"], times[f"{name}_bound_by"] = (
+            (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations"))
+    log(f"phase 19 times: one {big} bf16 draw {times['draw_ms']:.4f} ms (plain "
+        f"{times['draw_plain_ms']:.3f} ms, bound {times['draw_bound_ms']:.5f} ms "
+        f"{times['draw_bound_by']}); one step's 11 draws {times['step_draws_ms']:.4f} ms "
+        f"(plain {times['step_draws_plain_ms']:.3f} ms, bound {times['step_draws_bound_ms']:.5f} "
+        f"ms {times['step_draws_bound_by']}) [{smi}]")
+
+    # the `train` command through the kernels, the spans and counters on
+    import yaml
+
+    from seq2squiggle_tpu_torch import cli
+
+    over = {"max_epochs": 1, "train_batch_size": TRAIN_BATCH}
+    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+    (ROOT / "build").mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            tmp = pathlib.Path(tmp)
+            rng = np.random.default_rng(SEED)
+            _write_chunk_dir(tmp / "train", rng, 4, TRAIN_STEPS * TRAIN_BATCH // 4, cfg)
+            _write_chunk_dir(tmp / "valid", rng, 1, VALID_STEPS * TRAIN_BATCH, cfg)
+            (tmp / "cfg.yaml").write_text(yaml.safe_dump(over))
+            tracing.reset()
+            threefry.launches = 0
+            _reset_launch_counts()
+            cli.main(["train", str(tmp / "train"), str(tmp / "valid"), "-m",
+                      str(tmp / "ckpt" / "model.npz"), "-s", str(SEED), "-v", "warning",
+                      "--save_valid_plots", "false", "-y", str(tmp / "cfg.yaml")],
+                     standalone_mode=False)
+            torch.cuda.synchronize(dev)
+            launches, got, counts = threefry.launches, tracing.totals(), _launch_counts()
+    finally:
+        del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
+        tracing.switch_from_env()
+        tracing.reset()
+    check(launches == 16 * TRAIN_STEPS,
+          f"phase 19 train: {launches} threefry launches for {TRAIN_STEPS} steps, want 16 a step")
+    check("train.masks_plain" not in got.counts
+          and got.counts.get("train.masks_kernel") == TRAIN_STEPS * n_elems,
+          f"phase 19 train: elements drawn {got.counts} for {TRAIN_STEPS} steps of {n_elems}")
+    check(got.spans["train.masks"][0] == 11 * TRAIN_STEPS,
+          f"phase 19 train: {got.spans['train.masks'][0]} train.masks spans")
+    masks_ms = 1e3 * got.wall("train.masks") / TRAIN_STEPS
+    step_ms = 1e3 * got.wall("train.step") / TRAIN_STEPS
+    log(f"phase 19 train path: {launches} threefry launches for {TRAIN_STEPS} steps, "
+        f"{got.counts['train.masks_kernel']} elements by the kernel and none by the plain path; "
+        f"train.masks {masks_ms:.3f} ms a step of train.step {step_ms:.2f} ms (host spans); "
+        f"block launches {counts}")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return {"held": held, "keys": n_keys, "step": step, **times, "launches": launches,
+            "masks_ms": masks_ms, "step_ms": step_ms}
+
+
 def phase_pipeline(dev, main_recs, smi) -> dict:
     """Phase 17: the run loop's host threads and the per-shard launching
     threads on the card. Returns what it measured."""
@@ -2463,6 +2697,7 @@ def main() -> int:
     core4 = phase_parallel(dev, recs)
     phase_pipeline(dev, recs, smi)
     gamma = phase_gamma(dev, recs, smi)
+    masks = phase_masks(dev, smi)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
@@ -2568,6 +2803,19 @@ def main() -> int:
          "bound_by": gamma["bound_by"], "library_ms": None,
          "shares_by_batch": {str(B): {k: v for k, v in g.items() if k != "B"}
                              for B, g in gamma["held"].items()}},
+        {"name": "dropout_draw", "route": "cuda",
+         "source": "seq2squiggle_tpu_torch/csrc/threefry.cu",
+         "replaces": "no TPU kernel: prng.bernoulli in ops/attention.py::dropout_mask and "
+                     "ops/block_train.py::make_dropout_scales, and prng.fold_in / split of "
+                     "the train step's keys, in torch ops",
+         "launches": masks["launches"],
+         "max_abs_err": max(g["max_abs_err"] for g in masks["held"].values()),
+         "ms": masks["draw_ms"], "plain_ms": masks["draw_plain_ms"],
+         "bound_ms": masks["draw_bound_ms"], "bound_by": masks["draw_bound_by"],
+         "library_ms": None, "step_draws_ms": masks["step_draws_ms"],
+         "step_draws_plain_ms": masks["step_draws_plain_ms"],
+         "step_draws_bound_ms": masks["step_draws_bound_ms"],
+         "kept_shares": {k: g["kept"] for k, g in masks["held"].items()}},
     ]}
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "seq2squiggle_tpu"))

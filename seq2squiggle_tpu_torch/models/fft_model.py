@@ -36,11 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import prng, tracing
+from ..ops import threefry
 from ..ops.attention import _maybe_dropout, fft_block, linear
 from ..ops.block_train import fused_block_train, make_dropout_scales
 from ..ops.fft_block import fused_fft_block, fused_fft_block_pair
 from ..ops.positional import sinusoid_encoding_table
-from ..parallel.mesh import gather_for_kernel, global_rows
+from ..parallel.mesh import gather_for_kernel
 
 
 def compute_dtype(config: dict) -> torch.dtype:
@@ -107,32 +108,31 @@ def _train_kernel_mode(config: dict, x: torch.Tensor,
 def _dropout_scales(key: torch.Tensor, rate: float, h: torch.Tensor, mesh) -> torch.Tensor:
     """make_dropout_scales at the global batch's shape, cut to the rank's
     slab (a `train.masks` span)."""
-    rows, start = global_rows(mesh, h.shape[0])
     with tracing.span("train.masks"):
-        scales = make_dropout_scales(key, rate, (rows, *h.shape[1:]), h.dtype)
-    return scales[start:start + h.shape[0]] if rows != h.shape[0] else scales
+        return make_dropout_scales(key, rate, h.shape, h.dtype, mesh)
 
 
 def _train_blocks(blocks, h: torch.Tensor, n_head: int, config: dict, rate: float,
                   dropout_key: Optional[torch.Tensor], whole_block: bool,
                   mesh=None) -> torch.Tensor:
     """The training forward of a block stack: per-block key fold_in(key, i),
-    split into the attention-out and FFN-out dropout keys. `whole_block` is
-    true for the decoder, which takes the block rung where the mode says so;
-    the encoder takes the core rung there instead (as the JAX package)."""
+    split into the attention-out and FFN-out dropout keys (every block's in
+    one launch on the card). `whole_block` is true for the decoder, which
+    takes the block rung where the mode says so; the encoder takes the core
+    rung there instead (as the JAX package)."""
     mode = _train_kernel_mode(config, h)
+    keys = (threefry.fold_in_split(dropout_key, len(blocks))
+            if dropout_key is not None and rate > 0.0 else [None] * len(blocks))
     if mode == "block" and whole_block:
-        for i, block in enumerate(blocks):
+        for block, pair in zip(blocks, keys):
             s_a = s_f = None
-            if dropout_key is not None and rate > 0.0:
-                key_a, key_f = prng.split(prng.fold_in(dropout_key, i))
-                s_a = _dropout_scales(key_a, rate, h, mesh)
-                s_f = _dropout_scales(key_f, rate, h, mesh)
+            if pair is not None:
+                s_a = _dropout_scales(pair[0], rate, h, mesh)
+                s_f = _dropout_scales(pair[1], rate, h, mesh)
             h = fused_block_train(h, gather_for_kernel(block, mesh), s_a, s_f, n_head)
         return h
-    for i, block in enumerate(blocks):
-        key_i = prng.fold_in(dropout_key, i) if dropout_key is not None else None
-        h = fft_block(block, h, n_head, dropout_rate=rate, dropout_key=key_i,
+    for block, pair in zip(blocks, keys):
+        h = fft_block(block, h, n_head, dropout_rate=rate, dropout_key=pair,
                       packed_core=mode in ("core", "block"), mesh=mesh)
     return h
 
@@ -353,7 +353,7 @@ def duration_gamma_params(params: dict, emb_out: torch.Tensor, config: dict,
     rate_drop = config["duration_dropout"] if dropout_key is not None else 0.0
     k1 = k2 = None
     if dropout_key is not None:
-        k1, k2 = prng.split(dropout_key)
+        k1, k2 = threefry.split(dropout_key)
     conc = _mlp_head(dur["conc"], emb_out, rate_drop, k1, mesh)
     rate = _mlp_head(dur["rate"], emb_out, rate_drop, k2, mesh)
     return conc.clamp_min(epsilon), rate.clamp_min(epsilon)

@@ -91,6 +91,9 @@ def _entries() -> dict:
         "s2s_block_train_bwd": (c_int, [ptr] * 6 + [ptrs] + [ptr] * 3
                                 + [c_int, c_int, c_int, c_float, c_int, ptr]),
         "s2s_gamma_draw": (c_int, [ptr] * 9 + [c_int, c_int, c_float, ptr]),
+        "s2s_dropout_draw": (c_int, [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong, c_float,
+                                     ctypes.c_uint, c_int, ptr]),
+        "s2s_threefry_keys": (c_int, [ptr, ptr, c_int, c_int, ctypes.c_uint, c_int, ptr]),
         "s2s_error_string": (ctypes.c_char_p, [c_int]),
     })
     return table

@@ -31,8 +31,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .. import prng, tracing
+from .. import tracing
 from ..parallel.mesh import copy_to_tp, global_rows, reduce_from_tp
+from . import threefry
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -62,11 +63,11 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def dropout_mask(key: torch.Tensor, keep: float, shape, mesh=None) -> torch.Tensor:
     """jax.random.bernoulli(key, keep, shape) for the global batch, cut to
-    this rank's dp slab of `shape[0]` rows (a `train.masks` span)."""
+    this rank's dp slab of `shape[0]` rows (a `train.masks` span; one launch
+    on the card, ops/threefry.py)."""
     rows, start = global_rows(mesh, shape[0])
     with tracing.span("train.masks"):
-        mask = prng.bernoulli(key, keep, (rows, *shape[1:]))
-    return mask[start:start + shape[0]] if rows != shape[0] else mask
+        return threefry.bernoulli(key, keep, shape, rows, start)
 
 
 def _maybe_dropout(x: torch.Tensor, rate: float,
@@ -127,9 +128,10 @@ def positionwise_ffn(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
 def fft_block(p: dict, x: torch.Tensor, n_head: int, dropout_rate: float = 0.0,
               dropout_key: Optional[torch.Tensor] = None,
               packed_core: bool = False, mesh=None) -> torch.Tensor:
-    key_a = key_f = None
-    if dropout_key is not None:
-        key_a, key_f = prng.split(dropout_key)
+    """dropout_key: the attention-out and FFN-out dropout keys (2, 2), the
+    split of the block's key as the training path derives it (the JAX
+    package's fft_block takes the block's key and splits it itself)."""
+    key_a, key_f = (None, None) if dropout_key is None else dropout_key
     x = multi_head_attention(p["attn"], x, n_head, dropout_rate=dropout_rate,
                              dropout_key=key_a, packed_core=packed_core, mesh=mesh)
     return positionwise_ffn(p["ffn"], x, dropout_rate=dropout_rate, dropout_key=key_f,

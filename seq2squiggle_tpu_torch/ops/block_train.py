@@ -55,8 +55,8 @@ import math
 
 import torch
 
-from .. import prng
-from . import _build
+from ..parallel.mesh import global_rows
+from . import _build, threefry
 from .attn_core import (_heads, _mm, _packed, _softmax_terms,
                         packed_attention_backward_terms)
 from .attn_core import shared_memory_bytes as attn_core_smem
@@ -69,15 +69,16 @@ launches_fwd = 0  # forward-kernel launches; chip_smoke.py reads and resets it
 launches_bwd = 0  # backward launches (one per call, whatever its CUDA launches)
 
 
-def make_dropout_scales(key, rate: float, shape, dtype):
+def make_dropout_scales(key, rate: float, shape, dtype, mesh=None):
     """The dropout draw of ops.attention._maybe_dropout as a scale tensor:
     bernoulli(key, 1 - rate, shape) -> {1/keep, 0}, built in float32 and then
-    cast. None when there is no key or no dropout."""
+    cast; under dp the global batch's draw cut to this rank's slab of
+    `shape[0]` rows. One launch on the card (ops/threefry.py). None when
+    there is no key or no dropout."""
     if key is None or rate <= 0.0:
         return None
-    keep = 1.0 - rate
-    mask = prng.bernoulli(key, keep, tuple(shape))
-    return (mask.to(torch.float32) * (1.0 / keep)).to(dtype)
+    rows, start = global_rows(mesh, shape[0])
+    return threefry.dropout_scales(key, 1.0 - rate, shape, dtype, rows, start)
 
 
 def block_weights(block: dict):

@@ -1,4 +1,6 @@
-"""The Gamma dwell draw and its per-chunk key chain in one kernel launch.
+"""The port's threefry draws on the card, one kernel launch each: predict's
+Gamma dwell draw with its per-chunk key chain, and the train step's key
+derivations and dropout draws (the end of this docstring).
 
 `chunk_keys_and_durations` is the predict step's key chain
 fold_in(fold_in(base, read_idx), chunk_off), its dwell keys fold_in(·, 1),
@@ -24,11 +26,24 @@ torch.exp's there. The draws meet sampling's bars against the plain path
 
 The counters `sampling.gamma_kernel` and `sampling.gamma_plain` (tracing.py)
 count the rows each path draws; `launches` counts kernel launches.
+
+The train step's threefry takes the same dispatch (`fold_in`, `split`,
+`fold_in_split`, `bernoulli`, `dropout_scales`): on a CUDA key each is one
+launch of `csrc/threefry.cu` (`s2s_threefry_keys`, `s2s_dropout_draw`)
+where the torch ops of prng.py take ~175 launches a key derivation and ~190
+a dropout draw; on a CPU key each is those torch ops. Keys and masks are
+bit-equal: the key chain is integer work, and the mask compares uniform's
+f in [0, 1) with keep, where prng.fma's `f * 1 + 0` is f exactly. A dp
+rank's draw on the card is its own slab of the global draw, element for
+element. The counters `train.masks_kernel` and `train.masks_plain` count
+the elements each path draws.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -140,3 +155,146 @@ def sample_gamma_durations(keys: torch.Tensor, conc: torch.Tensor,
     tracing.count("sampling.gamma_kernel", B)
     return _launch(conc.device, B, conc.shape[1], keys=keys, conc=conc, rate=rate,
                    draws=True)[1]
+
+
+# ---- the train step: key derivation and dropout draws ----
+
+
+def _derive(keys: torch.Tensor, fold_data: int, n_fold: int, n_split: int) -> torch.Tensor:
+    """One launch of s2s_threefry_keys over keys (..., 2): each key folded
+    with fold_data + f for f < n_fold (none where n_fold is 0), then split
+    into n_split keys (none where 0). Returns (N, max(n_fold, 1),
+    max(n_split, 1), 2) int64 for the N leading keys."""
+    global launches
+    if keys.dtype != torch.int64 or keys.shape[-1:] != (2,):
+        raise ValueError(f"a key is (..., 2) int64; got {tuple(keys.shape)} {keys.dtype}")
+    flat = keys.reshape(-1, 2).contiguous()
+    out = torch.empty((flat.shape[0], max(n_fold, 1), max(n_split, 1), 2), dtype=torch.int64,
+                      device=keys.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(keys.device):  # the argument types convert the ints
+        err = lib.s2s_threefry_keys(
+            flat.data_ptr(), out.data_ptr(), flat.shape[0], n_fold, int(fold_data) & prng.MASK,
+            n_split, torch.cuda.current_stream(keys.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"s2s_threefry_keys launch failed: {_build.error_string(err, lib)}")
+    with _build.COUNT_LOCK:
+        launches += 1
+    return out
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """prng.fold_in(key, data) for keys (..., 2) and an int: one launch on
+    the card."""
+    if not key.is_cuda:
+        return prng.fold_in(key, data)
+    return _derive(key, data, 1, 0).reshape(key.shape)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """prng.split(key, num): (..., 2) -> (..., num, 2), one launch on the card."""
+    if not key.is_cuda:
+        return prng.split(key, num)
+    return _derive(key, 0, 0, num).reshape(*key.shape[:-1], num, 2)
+
+
+def fold_in_split_reference(key: torch.Tensor, n: int, num: int = 2) -> torch.Tensor:
+    """The plain split(fold_in(key, i), num) for i < n: (..., n, num, 2)."""
+    return torch.stack([prng.split(prng.fold_in(key, i), num) for i in range(n)], dim=-3)
+
+
+def fold_in_split(key: torch.Tensor, n: int, num: int = 2) -> torch.Tensor:
+    """split(fold_in(key, i), num) for i < n, (..., n, num, 2): a block
+    stack's per-block dropout keys, one launch on the card."""
+    if not key.is_cuda:
+        return fold_in_split_reference(key, n, num)
+    return _derive(key, 0, n, num).reshape(*key.shape[:-1], n, num, 2)
+
+
+def _rows(shape, rows) -> tuple:
+    shape = tuple(int(s) for s in shape)
+    return shape, shape[0] if rows is None else int(rows)
+
+
+def bernoulli_reference(key: torch.Tensor, p: float, shape, rows=None,
+                        start: int = 0) -> torch.Tensor:
+    """The plain draw: prng.bernoulli(key, p, (rows, *shape[1:])) cut to its
+    rows [start, start + shape[0]) (rows defaults to shape[0])."""
+    shape, rows = _rows(shape, rows)
+    mask = prng.bernoulli(key, p, (rows, *shape[1:]))
+    return mask[start:start + shape[0]] if rows != shape[0] else mask
+
+
+def dropout_scales_reference(key: torch.Tensor, keep: float, shape, dtype: torch.dtype,
+                             rows=None, start: int = 0) -> torch.Tensor:
+    """The plain scales: bernoulli_reference's mask -> {1/keep, 0}, built in
+    float32 and then cast to dtype."""
+    mask = bernoulli_reference(key, keep, shape, rows, start)
+    return (mask.to(torch.float32) * (1.0 / keep)).to(dtype)
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}  # element size -> its raw view
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_bits(keep: float, dtype: torch.dtype) -> int:
+    """The raw bits of a kept element's scale 1/keep in dtype, by the plain
+    path's arithmetic (float32, then a cast); cached, as the train step asks
+    for the same few scales every step."""
+    on = (torch.ones(1) * (1.0 / keep)).to(dtype)
+    return int(on.view(_BITS[dtype.itemsize]).item()) % (1 << 8 * dtype.itemsize)
+
+
+def _draw(key: torch.Tensor, keep: float, shape: tuple, rows: int, start: int,
+          dtype: torch.dtype, on_bits: int) -> torch.Tensor:
+    """One launch of s2s_dropout_draw: rows [start, start + shape[0]) of the
+    (rows, *shape[1:]) draw as `dtype`, the raw bits `on_bits` where kept and
+    0 elsewhere."""
+    global launches
+    if key.shape != (2,) or key.dtype != torch.int64:
+        raise ValueError(f"a dropout key is (2,) int64; got {tuple(key.shape)} {key.dtype}")
+    if dtype.itemsize not in _BITS or dtype.is_complex:
+        raise ValueError(f"the dropout kernel writes 1, 2 or 4-byte elements; got {dtype}")
+    if not 0 <= start <= rows - shape[0]:
+        raise ValueError(f"rows [{start}, {start + shape[0]}) lie outside a draw of {rows}")
+    out = torch.empty(shape, dtype=dtype, device=key.device)
+    tracing.count("train.masks_kernel", out.numel())
+    if out.numel() == 0:
+        return out
+    key = key.contiguous()
+    lib = _build.load()
+    with torch.cuda.device(key.device):  # the argument types convert the ints
+        err = lib.s2s_dropout_draw(
+            key.data_ptr(), out.data_ptr(), out.numel(), start * math.prod(shape[1:]),
+            prng.f32(keep), on_bits, dtype.itemsize,
+            torch.cuda.current_stream(key.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"s2s_dropout_draw launch failed: {_build.error_string(err, lib)}")
+    with _build.COUNT_LOCK:
+        launches += 1
+    return out
+
+
+def bernoulli(key: torch.Tensor, p: float, shape, rows=None, start: int = 0) -> torch.Tensor:
+    """jax.random.bernoulli(key, p, (rows, *shape[1:])), rows [start,
+    start + shape[0]) of it (a dp rank's slab; rows defaults to shape[0]):
+    a bool mask of `shape`, one launch on the card, which draws the slab
+    alone."""
+    shape, rows = _rows(shape, rows)
+    if not key.is_cuda:
+        tracing.count("train.masks_plain", rows * math.prod(shape[1:]))
+        return bernoulli_reference(key, p, shape, rows, start)
+    return _draw(key, p, shape, rows, start, torch.bool, 1)
+
+
+def dropout_scales(key: torch.Tensor, keep: float, shape, dtype: torch.dtype, rows=None,
+                   start: int = 0) -> torch.Tensor:
+    """bernoulli(key, keep, shape, rows, start) as scales of `dtype`: 1/keep
+    (rounded to float32, then to dtype) where kept, 0 where dropped."""
+    shape, rows = _rows(shape, rows)
+    if not key.is_cuda:
+        tracing.count("train.masks_plain", rows * math.prod(shape[1:]))
+        return dropout_scales_reference(key, keep, shape, dtype, rows, start)
+    return _draw(key, keep, shape, rows, start, dtype, _scale_bits(keep, dtype))

@@ -70,6 +70,7 @@ from ..models.weights import (
     params_to_jax,
     save_native_checkpoint,
 )
+from ..ops import threefry
 from ..ops.regulator import length_regulate
 from ..parallel.distributed import world as world_and_rank
 from ..parallel.mesh import (
@@ -94,7 +95,7 @@ def model_forward_train(params: dict, batch: Dict[str, torch.Tensor], config: di
     B, K = batch["chunks"].shape[:2]
     data = batch["chunks"].reshape(B, K, -1).to(compute_dtype(config))
 
-    keys = prng.split(dropout_key, 4) if dropout_key is not None else [None] * 4
+    keys = threefry.split(dropout_key, 4) if dropout_key is not None else [None] * 4
     enc_out, emb_out = encoder_forward(params, data, config, dropout_key=keys[0], train=True,
                                        mesh=mesh)
 
@@ -369,7 +370,7 @@ def train_run(
                 epoch_batches(train_ds, batch_size, rng, shuffle=True, local_rows=local_rows)):
             if max_steps_per_epoch and i >= max_steps_per_epoch:
                 break
-            dropout_key = prng.fold_in(base_key, step)
+            dropout_key = threefry.fold_in(base_key, step)
             batch, mask = place_batch(batch, mask)
             metrics = train_step(params, opt_state, batch, mask, dropout_key)
             if step % 100 == 0:
@@ -409,7 +410,7 @@ def train_run(
                 from .plots import generate_validation_plots
 
                 generate_validation_plots(whole, config, first_batch, epoch, log_dir,
-                                          prng.fold_in(base_key, 10_000 + epoch))
+                                          threefry.fold_in(base_key, 10_000 + epoch))
             except Exception as exc:  # plots must never stop training
                 logger.warning(f"Validation plots failed: {exc}")
 

@@ -219,7 +219,7 @@ def test_hand_backward_matches_autograd_through_plain_block(blocks, dropout):
         tree.setdefault(path[0], {}).setdefault(path[1], {})[path[2]] = leaf
     xr = x.clone().requires_grad_()
     out = tattention.fft_block(tree, xr, H, dropout_rate=RATE if dropout else 0.0,
-                               dropout_key=key)
+                               dropout_key=prng.split(key) if dropout else None)
     ref_gx, *ref_gw = torch.autograd.grad((out * w).sum(), (xr, *leaves))
 
     gx, gws = tblock.fused_block_train_backward_reference(

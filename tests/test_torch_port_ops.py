@@ -239,8 +239,8 @@ def test_fft_block_training_branch_values_and_grads(blocks, packed_core):
     tb_train = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(), tb)
     tleaves = [v for _, v in tree_leaves(tb_train)]
     xt = torch.from_numpy(x).requires_grad_()
-    out = torch_fft_block(tb_train, xt, 8, dropout_rate=0.2, dropout_key=prng.key(3),
-                          packed_core=packed_core)
+    out = torch_fft_block(tb_train, xt, 8, dropout_rate=0.2,
+                          dropout_key=prng.split(prng.key(3)), packed_core=packed_core)
     grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), [xt, *tleaves])
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), rtol=5e-4, atol=1e-4)
     np.testing.assert_allclose(grads[0].numpy(), np.asarray(ref_gx), rtol=5e-4, atol=1e-4)
