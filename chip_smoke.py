@@ -48,8 +48,8 @@ Phases (any failure raises and the script exits non-zero):
   7. train path at `pallas_train: core`: chunk files written from seed 7,
      then the `train` command at full width (bf16, batch 512), one epoch of
      10 steps (--save_valid_plots false: phase 10 makes the plots); core
-     forward launches must be 2 x (train + valid steps) and
-     backward launches 2 x train steps, every logged loss finite, the
+     launches 2 forward and 2 backward a step (counted as the note after
+     phase 20 says) and 2 forward a validation step, every logged loss finite, the
      checkpoint files present, model.npz validating at the logged loss and
      running one predict_step;
   8. whole-block training kernels vs plain: forward and backward at
@@ -76,12 +76,12 @@ Phases (any failure raises and the script exits non-zero):
      must pick the block rung) against `pallas_train: false`;
  10. train main path: the `train` command with the default config and no
      `pallas_train` override (bf16, batch 512, Adam, warmup_cosine, clip 1.0,
-     dropout 0.2), two epochs of 20 steps + 2 validation steps; block forward
-     launches must be 2 x (train + valid steps), backward launches 2 x train
-     steps and core launches 0, every logged loss finite, the validation loss
+     dropout 0.2), two epochs of 20 steps + 2 validation steps; block
+     launches 2 forward and 2 backward a step (the note after phase 20) and 2
+     forward a validation step, core launches 0, every logged loss finite, the validation loss
      lower at the end than for the initial parameters, the checkpoint files
      present, model.npz loading and running one predict_step, and `--resume`
-     running exactly the third epoch; at the default --save_valid_plots
+     running the third epoch, its launches counted alike; at the default --save_valid_plots
      true the run writes each epoch's validation plots (on the plain f32
      blocks, so the launch counts stay exact), which phase 15 checks;
  11. pair and `packed` vs plain: the two-block kernel against its plain
@@ -145,7 +145,7 @@ Phases (any failure raises and the script exits non-zero):
      1e-4 / atol 1e-7), and the train step's ms with Adam and with AdaFactor
      (interleaved); `sweep --sweep-id grid.yaml --count 2` (two trials of one
      epoch of 3 steps + 2 validation steps: 2 rows with finite
-     valid_total_loss, block launches exactly 2 x the trials' steps); and
+     valid_total_loss, block launches counted as in phase 10); and
      `version` naming the card;
  16. the parallel layer on the one card (no second card exists here): (a)
      phase 4's run with device=[cuda:0, cuda:0] (two shards of 512 rows a
@@ -157,7 +157,8 @@ Phases (any failure raises and the script exits non-zero):
      ranks on one card), one epoch of 4 steps + 2 validation steps at batch
      512, against the same command in one process: at the default config
      (bf16, the block rung) and at float32 with `pallas_train: block`, each
-     rank's whole-block launches exact for its slab, rank 1's model path
+     rank's whole-block launches exact for its slab (a dp run is eager), the
+     one-process run's counted as in phase 10, rank 1's model path
      empty, the step-0 losses (from the same parameters) within rtol 1e-5;
      at f32 every later loss within rtol 1e-5 and every parameter leaf of
      model.npz within rtol 1e-4 / atol 1e-6; at bf16, where each step's
@@ -222,10 +223,45 @@ Phases (any failure raises and the script exits non-zero):
      kernels and through the torch ops: loss and every gradient bit-equal;
      median times of one (512, 250, 64) bf16 draw and of one step's 11
      draws, kernel and plain, beside their bound; then the `train` command
-     (one epoch of 20 steps, no plots) with the spans on: 16 launches a step
-     (11 draws, 5 key derivations), `train.masks_plain` absent and
-     `train.masks_kernel` the 11 draws' elements a step, 11 `train.masks`
-     spans a step.
+     (one epoch of 20 steps, no plots) with the spans on: 16 threefry
+     launches a step (11 draws, 5 key derivations, one of them the step
+     key's fold_in in train_run), counted as the note after phase 20 says,
+     `train.masks_plain` absent and `train.masks_kernel` the 11 draws'
+     elements and 11 `train.masks` spans for each step whose draws the host
+     issues: the eager warm-up and the capture;
+ 20. the train step as a CUDA graph (train/loop.py::TrainStep): for each
+     run of GRAPH_CASES (the `block`, `core` and `false` rungs, bf16 and
+     f32, and the six optimizers under five schedules), 6 steps at batch 512
+     and 3 at 256 from one start through the step (eager warm-up, capture,
+     replays, and again at the new shape and where RAdam's branch flips)
+     and through `TrainStep.eager` on a copy: parameters, the optimizer's
+     state and every metric bit-equal, the eager steps, captures and
+     replays the graph keys call for, the counts as the note below says,
+     and from a profile of 3 more replays a replayed step's kernels; the
+     default Adam on the card, dividing by its device scalars, at least as
+     close to the CPU's update (which tests/test_torch_port_train.py holds
+     to optax's) as the update with Python numbers, values differing and
+     largest |difference| printed; the default step's host time to
+     return, its wall with a synchronize and, from a profile of 5 steps,
+     the card's busy time, device events, kernel and graph launches a step,
+     graphed and eager in interleaved rounds; phase 19's `train` command as
+     1 eager step, 1 capture and 19 replays.
+
+On one card the train step is a CUDA graph, so the `train` command (and
+`sweep`) runs each TrainStep's first step eagerly, captures the second and
+replays the rest. The wrappers' launch counters (ops/block_train.py,
+ops/attn_core.py, ops/threefry.py) count what the host issues: eager
+steps and captures. So phases 7, 10, 15, 16 and 19 hold them at the
+counts above for each eager step and capture, plus the validation's, and
+hold every step to have run once, as an eager step or a replay. In phases
+7, 10, 15 (its AdaFactor run) and 19, torch.profiler also records the
+card's kernels from the capture on. Device kernel events are counted by
+name (`block_train_fwd`, `bwd_rows`, `attn_core_fwd`, `attn_core_bwd`
+less the block backward's own, `dropout_draw_kernel`,
+`threefry_keys_kernel`). The kernels the host issued in that window are
+taken off, and the rest divided by the replays: a replayed step must
+have run the counts above. The kernels line reports this as
+`launches_per_replayed_step`.
 
 Beside the kernels (phases 2, 8, 11, 12), one library call that computes the
 same function is timed and held against the plain version at phase 2's bf16
@@ -239,7 +275,8 @@ whole-block training kernels at unit dropout scales). Nothing in the port
 calls them.
 
 The line before the last is a JSON object with each kernel's route, source,
-launches on its main path (for the profiling kernels: in their timing
+launches on its main path (the host's; for the training kernels, those of
+a replayed step beside them; for the profiling kernels: in their timing
 scripts' timed rounds), error, times and bound (the least time the card could
 take: bytes over 3.35 TB/s against operations over the peak of their type,
 989 TFLOP/s bf16 and 67 TFLOP/s f32, NVIDIA's H100 SXM data sheet; for the
@@ -293,6 +330,7 @@ THREEFRY_OPS = 80  # integer operations of one threefry block (csrc/threefry.cuh
 MASK_CASES = (((512, 250, 64), None, 0), ((512, 16, 64), None, 0), ((37, 250, 64), None, 0),
               ((128, 250, 64), 512, 256))
 MASK_KEEPS = (0.8, 0.9)
+GRAPH_STEPS = 6  # phase 20: steps at the train batch before the batch of half its rows
 
 
 def log(msg: str) -> None:
@@ -1482,8 +1520,9 @@ def phase_train_main_path(dev, mode, epochs, steps, resume, optimizer=None, plot
     full width, launches counted. mode: the `pallas_train` override, or None
     for the default config (which takes the block rung in bf16 on a GPU);
     optimizer: the config's, or None for its default (Adam); plots: the
-    default (--save_valid_plots true) or false. Returns the run's launch
-    counts, the PNG files under each epoch_<n>/ and the port's warnings."""
+    default (--save_valid_plots true) or false. Returns the run's counts
+    (`_counted`, profiled), the PNG files under each epoch_<n>/ and the
+    port's warnings."""
     import yaml
 
     from seq2squiggle_tpu_torch import cli, prng
@@ -1529,20 +1568,21 @@ def phase_train_main_path(dev, mode, epochs, steps, resume, optimizer=None, plot
                 "-s", str(SEED), "-v", "warning"]
         if not plots:
             args += ["--save_valid_plots", "false"]
-        _reset_launch_counts()
         t0 = time.perf_counter()
         with _Logged() as warned:
-            cli.main([*args, "-y", str(tmp / "cfg.yaml")], standalone_mode=False)
-        torch.cuda.synchronize()
+            _, counted = _counted(lambda: cli.main([*args, "-y", str(tmp / "cfg.yaml")],
+                                                   standalone_mode=False), profile=True)
         seconds = time.perf_counter() - t0
-        counts = _launch_counts()
 
         n_train, n_valid = epochs * steps, epochs * VALID_STEPS
-        ran = (2 * (n_train + n_valid), 2 * n_train)
-        want = (0, 0, *ran) if mode == "core" else (*ran, 0, 0)
-        check(counts == want,
-              f"{name}: launches (block forward, block backward, core forward, core backward) "
-              f"{counts} for {n_train} train and {n_valid} valid steps, want {want}")
+        core = mode == "core"
+        per_step = ((0, 0, 2, 2) if core else (2, 2, 0, 0)) + (15,)
+
+        def valid(n):  # the validation's forward launches
+            return (0, 0, 2 * n, 0, None) if core else (2 * n, 0, 0, 0, None)
+
+        check_train_counts(name, counted, n_train, per_step, valid(n_valid),
+                           steps_a_graph=n_train)
         last = epochs - 1
         for file in ("model.npz", f"model-epoch{last}.npz", "train_state.npz", "metrics.jsonl"):
             check((tmp / "ckpt" / file).exists(), f"{name}: {file} missing")
@@ -1571,24 +1611,30 @@ def phase_train_main_path(dev, mode, epochs, steps, resume, optimizer=None, plot
             check(len(state["opt_leaves"]) == 254,
                   f"AdaFactor's train state has {len(state['opt_leaves'])} leaves, want 254")
         if resume:
-            _reset_launch_counts()
             with warned:
-                cli.main([*args, "-y", str(tmp / "cfg_more.yaml"), "--resume"],
-                         standalone_mode=False)
+                _, resumed = _counted(lambda: cli.main(
+                    [*args, "-y", str(tmp / "cfg_more.yaml"), "--resume"],
+                    standalone_mode=False))
             check(load_train_state(str(tmp / "ckpt" / "train_state.npz"))["epoch"] == epochs
-                  and (tmp / "ckpt" / f"model-epoch{epochs}.npz").exists()
-                  and _launch_counts()[1] == 2 * steps,
-                  f"--resume did not run exactly epoch {epochs} "
-                  f"({_launch_counts()[1]} backward launches)")
+                  and (tmp / "ckpt" / f"model-epoch{epochs}.npz").exists(),
+                  f"--resume did not run epoch {epochs}")
+            check_train_counts(f"{name} --resume", resumed, steps, per_step,
+                               valid(VALID_STEPS), steps_a_graph=steps)
         pngs = {int(d.name.split("_")[1]): sorted(f.name for f in d.iterdir())
                 for d in (tmp / "ckpt").glob("epoch_*")}
+    schedule = tuple(counted["counts"][f"train.{k}"]
+                     for k in ("eager_steps", "graph_captures", "graph_replays"))
     log(f"train path at {name}: {n_train} train + {n_valid} valid steps of {TRAIN_BATCH} "
         f"chunks in {seconds:.3f} s ({n_train / seconds:.2f} steps/s, "
         f"{n_train * TRAIN_BATCH / seconds:.0f} chunks/s, wall time of the whole command "
-        f"with data loading, validation, plots and checkpoints); validation loss {loss0:.5f} -> "
-        f"{loss1:.5f}; launches (block forward, block backward, core forward, core backward) "
-        f"{counts}" + (f"; --resume ran epoch {epochs}" if resume else ""))
-    return counts, pngs, warned.messages
+        f"with data loading, validation, plots and checkpoints, under torch.profiler from the "
+        f"capture on); validation loss {loss0:.5f} -> {loss1:.5f}; (eager steps, captures, "
+        f"replays) {schedule}; "
+        f"the host issued (block forward, block backward, core forward, core backward, "
+        f"threefry) {counted['host']}, a replayed step ran {counted['replayed']} "
+        f"({counted['short']} launches short of records)"
+        + (f"; --resume ran epoch {epochs}" if resume else ""))
+    return counted, pngs, warned.messages
 
 
 def _adafactor_updates(device, n_updates: int = 3):
@@ -1744,20 +1790,18 @@ def phase_train_rest(dev, smi, pngs, warnings):
         cwd = pathlib.Path.cwd()
         os.chdir(tmp)  # a trial without a model path writes ./logs-<log_name>/
         try:
-            _reset_launch_counts()
             t0 = time.perf_counter()
-            cli.main(["sweep", "--sweep-id", str(tmp / "grid.yaml"), "--count", str(n_trials),
-                      "-y", str(tmp / "cfg.yaml"), "-s", str(SEED), "-v", "warning"],
-                     standalone_mode=False)
-            torch.cuda.synchronize()
+            _, counted = _counted(lambda: cli.main(
+                ["sweep", "--sweep-id", str(tmp / "grid.yaml"), "--count", str(n_trials),
+                 "-y", str(tmp / "cfg.yaml"), "-s", str(SEED), "-v", "warning"],
+                standalone_mode=False))
             sweep_s = time.perf_counter() - t0
         finally:
             os.chdir(cwd)
-        counts = _launch_counts()
+        counts = counted["host"]
         rows = [json.loads(line) for line in open(tmp / "sweep_results.jsonl")]
-    ran = (2 * n_trials * (steps + VALID_STEPS), 2 * n_trials * steps, 0, 0)
-    check(counts == ran, f"sweep: launches {counts} for {n_trials} trials of {steps} train "
-          f"and {VALID_STEPS} valid steps, want {ran}")
+    check_train_counts("sweep", counted, n_trials * steps, (2, 2, 0, 0, 15),
+                       (2 * n_trials * VALID_STEPS, 0, 0, 0, None), steps_a_graph=steps)
     check(len(rows) == n_trials and all(math.isfinite(r["metrics"]["valid_total_loss"])
                                         for r in rows), f"sweep rows {rows}")
     check([r["params"]["lr"] for r in rows] == [5e-4, 1e-3], "sweep: the grid's order")
@@ -2026,13 +2070,12 @@ def phase_parallel(dev, main_recs):
                       and tuple(rec["launches"]) == (*steps, 0, 0),
                       f"dp = 2 {name}: rank {rec['rank']} ran {rec}, want block launches {steps}")
             check(not any((tmp / f"{name}1").iterdir()), f"dp = 2 {name}: rank 1 wrote files")
-            _reset_launch_counts()
             t0 = time.perf_counter()
-            cli.main(args(f"{name}.yaml", tmp / f"one_{name}" / "model.npz"),
-                     standalone_mode=False)
-            torch.cuda.synchronize()
+            _, counted = _counted(lambda: cli.main(
+                args(f"{name}.yaml", tmp / f"one_{name}" / "model.npz"), standalone_mode=False))
             one_s = time.perf_counter() - t0
-            check(_launch_counts() == (*steps, 0, 0), f"one process {name}: {_launch_counts()}")
+            check_train_counts(f"one process {name}", counted, PARALLEL_STEPS, (2, 2, 0, 0, 15),
+                               (2 * VALID_STEPS, 0, 0, 0, None), steps_a_graph=PARALLEL_STEPS)
             got = _losses(tmp / f"{name}0" / "metrics.jsonl")
             p2 = fft_model.tree_leaves(load_checkpoint(str(tmp / f"{name}0" / "model.npz"))[0])
 
@@ -2373,7 +2416,7 @@ def phase_masks(dev, smi) -> dict:
     """Phase 19: the train step's threefry kernels against prng.py's torch
     ops, a train step through each, their times, and the `train` command
     through the kernels. Returns what it measured."""
-    from seq2squiggle_tpu_torch import prng, tracing
+    from seq2squiggle_tpu_torch import prng
     from seq2squiggle_tpu_torch.config import load_config
     from seq2squiggle_tpu_torch.ops import threefry
 
@@ -2434,44 +2477,535 @@ def phase_masks(dev, smi) -> dict:
     from seq2squiggle_tpu_torch import cli
 
     over = {"max_epochs": 1, "train_batch_size": TRAIN_BATCH}
-    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
     (ROOT / "build").mkdir(exist_ok=True)
-    try:
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-            tmp = pathlib.Path(tmp)
-            rng = np.random.default_rng(SEED)
-            _write_chunk_dir(tmp / "train", rng, 4, TRAIN_STEPS * TRAIN_BATCH // 4, cfg)
-            _write_chunk_dir(tmp / "valid", rng, 1, VALID_STEPS * TRAIN_BATCH, cfg)
-            (tmp / "cfg.yaml").write_text(yaml.safe_dump(over))
-            tracing.reset()
-            threefry.launches = 0
-            _reset_launch_counts()
-            cli.main(["train", str(tmp / "train"), str(tmp / "valid"), "-m",
-                      str(tmp / "ckpt" / "model.npz"), "-s", str(SEED), "-v", "warning",
-                      "--save_valid_plots", "false", "-y", str(tmp / "cfg.yaml")],
-                     standalone_mode=False)
-            torch.cuda.synchronize(dev)
-            launches, got, counts = threefry.launches, tracing.totals(), _launch_counts()
-    finally:
-        del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
-        tracing.switch_from_env()
-        tracing.reset()
-    check(launches == 16 * TRAIN_STEPS,
-          f"phase 19 train: {launches} threefry launches for {TRAIN_STEPS} steps, want 16 a step")
-    check("train.masks_plain" not in got.counts
-          and got.counts.get("train.masks_kernel") == TRAIN_STEPS * n_elems,
-          f"phase 19 train: elements drawn {got.counts} for {TRAIN_STEPS} steps of {n_elems}")
-    check(got.spans["train.masks"][0] == 11 * TRAIN_STEPS,
-          f"phase 19 train: {got.spans['train.masks'][0]} train.masks spans")
-    masks_ms = 1e3 * got.wall("train.masks") / TRAIN_STEPS
-    step_ms = 1e3 * got.wall("train.step") / TRAIN_STEPS
-    log(f"phase 19 train path: {launches} threefry launches for {TRAIN_STEPS} steps, "
-        f"{got.counts['train.masks_kernel']} elements by the kernel and none by the plain path; "
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        rng = np.random.default_rng(SEED)
+        _write_chunk_dir(tmp / "train", rng, 4, TRAIN_STEPS * TRAIN_BATCH // 4, cfg)
+        _write_chunk_dir(tmp / "valid", rng, 1, VALID_STEPS * TRAIN_BATCH, cfg)
+        (tmp / "cfg.yaml").write_text(yaml.safe_dump(over))
+        _, got = _counted(lambda: cli.main(
+            ["train", str(tmp / "train"), str(tmp / "valid"), "-m",
+             str(tmp / "ckpt" / "model.npz"), "-s", str(SEED), "-v", "warning",
+             "--save_valid_plots", "false", "-y", str(tmp / "cfg.yaml")],
+            standalone_mode=False), profile=True)
+    # 15 threefry launches in the step's body, the step key's fold_in in train_run
+    eager, captures, replays = check_train_counts(
+        "phase 19 train", got, TRAIN_STEPS, (2, 2, 0, 0, 15),
+        (2 * VALID_STEPS, 0, 0, 0, TRAIN_STEPS), steps_a_graph=TRAIN_STEPS)
+    hosted, counts, launches = eager + captures, got["counts"], got["host"][4]
+    check("train.masks_plain" not in counts
+          and counts.get("train.masks_kernel") == hosted * n_elems,
+          f"phase 19 train: elements drawn {counts} for {hosted} eager steps and captures of "
+          f"{n_elems}")
+    check(got["masks_spans"] == 11 * hosted,
+          f"phase 19 train: {got['masks_spans']} train.masks spans for {hosted} eager steps "
+          "and captures (a replayed step issues no draw from the host)")
+    masks_ms = 1e3 * got["totals"].wall("train.masks") / TRAIN_STEPS
+    step_ms = 1e3 * got["totals"].wall("train.step") / TRAIN_STEPS
+    log(f"phase 19 train path: {TRAIN_STEPS} steps, {eager} eager, {captures} capture, "
+        f"{replays} replays; the host issued {launches} threefry launches (15 a step into the "
+        f"eager step and the capture, the step keys' {TRAIN_STEPS}), "
+        f"{counts['train.masks_kernel']} elements by the kernel and none by the plain path; "
+        f"a replayed step ran {got['replayed'][4]:.0f} threefry kernels and (block forward, "
+        f"block backward, core forward, core backward) {got['replayed'][:4]} (torch.profiler "
+        f"from the capture on; {got['short']} of {replays} launches short of records); "
         f"train.masks {masks_ms:.3f} ms a step of train.step {step_ms:.2f} ms (host spans); "
-        f"block launches {counts}")
+        f"host block launches {got['host'][:4]}")
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return {"held": held, "keys": n_keys, "step": step, **times, "launches": launches,
-            "masks_ms": masks_ms, "step_ms": step_ms}
+            "masks_ms": masks_ms, "step_ms": step_ms, "train_counts": counts,
+            "block_launches": got["host"][:4], "replayed": got["replayed"]}
+
+
+# device kernels by the wrapper counter they answer to: (group, part of the kernel's name)
+KERNEL_GROUPS = (("block_fwd", "block_train_fwd"), ("block_bwd", "bwd_rows"),
+                 ("core_fwd", "attn_core_fwd"), ("attn_core_bwd", "attn_core_bwd"),
+                 ("dropout_draw", "dropout_draw_kernel"), ("threefry_keys", "threefry_keys_kernel"))
+
+
+def _kernel_counts(names) -> tuple:
+    """Device kernel events counted by the names of the wrappers' counters:
+    (block forward, block backward, core forward, core backward, threefry),
+    `_host_counts`' order. The core's backward kernel also runs in the
+    block backward's attention stage, once a call, which is taken off;
+    threefry is the dropout draws and key derivations, as threefry.launches
+    counts them in a train step."""
+    n = dict.fromkeys((g for g, _ in KERNEL_GROUPS), 0)
+    for name in names:
+        for group, part in KERNEL_GROUPS:
+            if part in name:
+                n[group] += 1
+    return (n["block_fwd"], n["block_bwd"], n["core_fwd"], n["attn_core_bwd"] - n["block_bwd"],
+            n["dropout_draw"] + n["threefry_keys"])
+
+
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def _graph_kernels(events) -> dict:
+    """The graph launches in a profile's kineto events and the device
+    kernels each ran (a kernel a graph ran carries its launch's correlation
+    id): `launches`; `by_launch`, {(device events, `_kernel_counts`): the
+    launches, in order}; `kernels`, the counts of the launches most alike,
+    which is what every launch of one graph runs; `short`, the launches
+    with fewer events, none more in any group: records the profiler lost
+    (seen once in a whole chip_smoke.py run, never in a process of its own)."""
+    events = list(events)
+    graphs = sorted(e.correlation_id() for e in events if e.name() in GRAPH_LAUNCHES)
+    ran = {g: [] for g in graphs}
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.correlation_id() in ran:
+            ran[e.correlation_id()].append(e.name())
+    by_launch = {}
+    for i, g in enumerate(graphs):
+        by_launch.setdefault((len(ran[g]), _kernel_counts(ran[g])), []).append(i)
+    if not by_launch:
+        return {"launches": 0, "by_launch": {}, "kernels": None, "short": 0}
+    (n, kernels), _ = max(by_launch.items(), key=lambda item: len(item[1]))
+    short = [i for (m, k), idx in by_launch.items() if (m, k) != (n, kernels)
+             and m < n and all(a <= b for a, b in zip(k, kernels)) for i in idx]
+    check(len(short) + len(by_launch[n, kernels]) == len(graphs),
+          f"graph launches ran different kernels: {by_launch}")
+    return {"launches": len(graphs), "by_launch": by_launch, "kernels": kernels,
+            "short": len(short)}
+
+
+def _host_counts() -> tuple:
+    """The wrappers' launch counters: `_launch_counts` and threefry.launches."""
+    from seq2squiggle_tpu_torch.ops import threefry
+
+    return (*_launch_counts(), threefry.launches)
+
+
+def _counted(run, profile: bool = False):
+    """run() with the span recorder on and every launch counter at 0. Returns
+    run's result and what was counted: the recorder's `counts`, its
+    `train.masks` spans and its `totals`; `host`, the wrappers' counters
+    (`_host_counts`), which count the launches the host issues, on eager
+    steps and into captures. Where `profile`, torch.profiler records the host and the
+    card from the end of the run's first capture of a train step (a
+    capture is never profiled; run only one TrainStep), in which all the
+    replays fall: `replayed` is, by `_kernel_counts`' groups, the kernels
+    a graph launch ran, a replayed step's kernels; `graph_launches` their
+    number, `by_launch` and `short` as `_graph_kernels` gives them."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from seq2squiggle_tpu_torch import tracing
+    from seq2squiggle_tpu_torch.ops import threefry
+    from seq2squiggle_tpu_torch.train import loop
+
+    window = {}
+    real = loop.TrainStep._capture
+
+    def capture(self, *args, **kw):
+        graph = real(self, *args, **kw)
+        if profile and "prof" not in window:
+            torch.cuda.synchronize()
+            window["prof"] = profiler(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+            window["prof"].start()
+        return graph
+
+    os.environ[tracing.ENV] = "1"
+    tracing.switch_from_env()
+    tracing.reset()
+    threefry.launches = 0
+    _reset_launch_counts()
+    try:
+        with mock.patch.object(loop.TrainStep, "_capture", capture):
+            out = run()
+        torch.cuda.synchronize()
+        if "prof" in window:
+            window["prof"].stop()
+        got = tracing.totals()
+    finally:
+        del os.environ[tracing.ENV]
+        tracing.switch_from_env()
+        tracing.reset()
+    info = {"counts": dict(got.counts), "masks_spans": got.spans.get("train.masks", (0,))[0],
+            "host": _host_counts(), "totals": got}
+    if "prof" in window:
+        graphs = _graph_kernels(window["prof"].profiler.kineto_results.events())
+        info["graph_launches"], info["by_launch"] = graphs["launches"], graphs["by_launch"]
+        info["replayed"], info["short"] = graphs["kernels"], graphs["short"]
+    return out, info
+
+
+def check_train_counts(what, got, n_train, per_step, host_extra, steps_a_graph=None):
+    """The counts of a run of one or more TrainSteps on one card: every one
+    of n_train steps ran once, as an eager step or a replay, with one
+    capture for each graph; the wrappers counted `per_step` launches
+    (`_host_counts`' order) for each step the host issued (eager steps and
+    captures) plus `host_extra` (validation, the step keys; None: not
+    checked); where profiled, a replayed step ran `per_step` kernels. steps_a_graph: the
+    steps of each TrainStep, where each has one batch shape (one eager
+    step, one capture). Returns (eager steps, captures, replays)."""
+    c = got["counts"]
+    eager, captures, replays = (c.get(f"train.{k}", 0)
+                                for k in ("eager_steps", "graph_captures", "graph_replays"))
+    check(eager + replays == n_train and captures > 0 and eager <= 2 * captures,
+          f"{what}: {eager} eager steps, {captures} captures and {replays} replays for "
+          f"{n_train} steps")
+    if steps_a_graph is not None:
+        check(eager == captures == n_train // steps_a_graph,
+              f"{what}: {eager} eager steps and {captures} captures, want one each for each "
+              f"{steps_a_graph} steps")
+    want = tuple(None if x is None else s * (eager + captures) + x
+                 for s, x in zip(per_step, host_extra))
+    check(all(w is None or h == w for h, w in zip(got["host"], want)),
+          f"{what}: the host issued (block forward, block backward, core forward, core "
+          f"backward, threefry) {got['host']}, want {want} for {eager} eager steps and "
+          f"{captures} captures")
+    if "replayed" in got:
+        check(got["graph_launches"] == replays and got["replayed"] == per_step
+              and got["short"] <= max(1, replays // 10),
+              f"{what}: {got['graph_launches']} graph launches for {replays} replays ran "
+              f"{got['replayed']} kernels a replay, want {per_step}, {got['short']} launches "
+              f"short of records ((device events, kernels) of each launch {got['by_launch']})")
+    return eager, captures, replays
+
+
+# phase 20: (pallas_train, compute dtype, optimizer, lr schedule) of each run
+GRAPH_CASES = (("block", "bfloat16", "Adam", "warmup_cosine"),
+               ("core", "bfloat16", "Adam", "warmup_cosine"),
+               (False, "bfloat16", "Adam", "warmup_cosine"),
+               ("block", "float32", "Adam", "warmup_cosine"),
+               (False, "float32", "Adam", "warmup_cosine"),
+               ("block", "bfloat16", "AdamW", "one_cycle"),
+               ("block", "bfloat16", "RAdam", "constant"),
+               ("block", "bfloat16", "SGD", "warmup_constant"),
+               ("block", "bfloat16", "RMSProp", "warmup_cosine_restarts"),
+               ("block", "bfloat16", "AdaFactor", "warmup_cosine"))
+
+
+def _graph_schedule(keys) -> tuple:
+    """(eager steps, captures, replays, the calls the host issued) of
+    TrainStep calls with these graph keys in turn: a key's first call
+    eager, its second a capture (and its replay), later ones replays, until
+    the key changes."""
+    eager = captures = replays = 0
+    graph = warmed = None
+    hosted = []
+    for i, k in enumerate(keys):
+        if k == graph:
+            replays += 1
+            continue
+        if k != warmed:
+            warmed, eager = k, eager + 1
+        else:
+            graph, captures, replays = k, captures + 1, replays + 1
+        hosted.append(i)
+    return eager, captures, replays, hosted
+
+
+def hold_graphed_step(dev, mode="block", dtype: str = "bfloat16", optimizer: str = "Adam",
+                      schedule: str = "warmup_cosine", steps: int = GRAPH_STEPS) -> dict:
+    """Phase 20's bars for one run of GRAPH_CASES: `steps` default steps at
+    batch TRAIN_BATCH, then 3 at half of it, from one start, through the
+    step (an eager warm-up, a capture, replays; again at the new shape, and
+    where RAdam's branch flips, which it does at its 6th update) and through
+    its `eager` on a copy: parameters, the optimizer's state and every
+    metric bit-equal; the eager steps, captures and replays that the graph
+    keys call for; the wrappers' launches (16 threefry launches a step, the
+    step key's fold_in as train_run derives it among them) for each step
+    the host issued, and `train.masks` spans and drawn elements on those
+    steps only. Then, from a profile of 3 more replays, a replayed step's
+    kernels by `_kernel_counts`' groups and its launches. Returns the
+    graphed run's counts and the replays' kernels."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.ops import threefry
+    from seq2squiggle_tpu_torch.train.loop import make_train_step
+    from seq2squiggle_tpu_torch.train.optimizers import build_optimizer, radam_rectifier
+
+    cfg = dict(load_config(None), pallas_train=mode, compute_dtype=dtype, optimizer=optimizer,
+               lr_schedule=schedule, warmup_ratio=0.2)
+    host = fft_model.init_params(cfg, prng.key(SEED))
+    base = prng.key(SEED, dev)
+    shapes = [TRAIN_BATCH] * steps + [TRAIN_BATCH // 2] * 3
+    feeds = []
+    for i, B in enumerate(shapes):
+        batch, mask = _train_batch(cfg, B, seed=40 + i)
+        feeds.append(({k: v.to(dev) for k, v in batch.items()}, mask.to(dev)))
+    n = len(feeds)
+
+    def run(graphed):
+        params = fft_model.to_train_params(host, dev)
+        opt = build_optimizer(cfg, n)  # the schedule's whole course, warm-up's end included
+        state = opt.init([v for _, v in fft_model.tree_leaves(params)])
+        step = make_train_step(cfg, opt)
+        metrics, got = _counted(lambda: [
+            (step if graphed else step.eager)(params, state, batch, mask,
+                                              threefry.fold_in(base, i))
+            for i, (batch, mask) in enumerate(feeds)])
+        return step, opt, params, state, metrics, got
+
+    what = f"graphed steps at {mode}, {dtype}, {optimizer}, {schedule}"
+    (step, opt, p1, s1, m1, c1), (_, _, p2, s2, m2, c2) = run(True), run(False)
+    leaves = [(a, b) for (_, a), (_, b) in zip(fft_model.tree_leaves(p1),
+                                               fft_model.tree_leaves(p2))]
+    differ = [i for i, (a, b) in enumerate(leaves) if not torch.equal(a, b)]
+    differ += [f"state {i}" for i, (a, b) in enumerate(zip(opt.state_leaves(s1),
+                                                          opt.state_leaves(s2)))
+               if not (a.dtype == b.dtype and a.tobytes() == b.tobytes())]
+    check(not differ, f"{what}: parameters or state {differ} differ from the eager steps'")
+    bad = [(i, k) for i, (a, b) in enumerate(zip(m1, m2)) for k in b
+           if not torch.equal(a[k], b[k])]
+    check(all(a.keys() == b.keys() for a, b in zip(m1, m2)) and not bad,
+          f"{what}: metrics {bad[:5]} differ")
+    rectified = [radam_rectifier(i + 1) is not None if optimizer == "RAdam" else None
+                 for i in range(n)]
+    eager, captures, replays, hosted = _graph_schedule(list(zip(shapes, rectified)))
+    got = [c1["counts"].get(f"train.{k}") for k in ("eager_steps", "graph_captures",
+                                                    "graph_replays")]
+    check(got == [eager, captures, replays],
+          f"{what}: (eager, captures, replays) {got}, want {[eager, captures, replays]}")
+    # an eager step's launches, the step key's fold_in among threefry's
+    rung = {"block": (2, 2, 0, 0), "core": (0, 0, 2, 2)}.get(mode, (0, 0, 0, 0))
+    per_step = (*rung, c2["host"][4] // n - 1)
+    check(c2["counts"]["train.eager_steps"] == n
+          and not [k for k in c2["counts"] if k.startswith("train.graph")]
+          and c2["host"] == tuple(s * n for s in rung) + ((per_step[4] + 1) * n,)
+          and (mode not in ("block", "core") or per_step[4] == 15),
+          f"eager steps at {what}: {c2}")
+    check_train_counts(what, c1, n, per_step, (0, 0, 0, 0, n))
+    # the draws: as many spans a step, elements in proportion to its rows
+    rows, rows_hosted = sum(shapes), sum(shapes[i] for i in hosted)
+    elems, spans = (c2["counts"].get("train.masks_kernel", 0), c2["masks_spans"])
+    check("train.masks_plain" not in c1["counts"] and spans % n == 0
+          and c1["masks_spans"] == spans // n * len(hosted)
+          and c1["counts"].get("train.masks_kernel", 0) * rows == elems * rows_hosted,
+          f"{what}: train.masks spans {c1['masks_spans']} graphed, {spans} eager; elements "
+          f"{c1['counts'].get('train.masks_kernel')} graphed, {elems} eager")
+
+    batch, mask = feeds[-1]
+    keys = [threefry.fold_in(base, n + i) for i in range(3)]
+    traced = _device_trace(lambda: [step(p1, s1, batch, mask, k) for k in keys])
+    graphs = traced["graphs"]
+    replayed = graphs["kernels"]
+    check(traced["graph_launches"] == graphs["launches"] == 3 and replayed == per_step
+          and graphs["short"] <= 1,
+          f"{what}: 3 more replays ran {traced['graph_launches']} graphs and kernels "
+          f"{graphs['by_launch']}, want {per_step}; all the window's kernels "
+          f"{traced['kernels']}")
+    return {"counts": c1["counts"], "host": c1["host"], "eager_host": c2["host"],
+            "schedule": (eager, captures, replays), "leaves": len(leaves), "per_step": per_step,
+            "replayed": replayed, "replay_launches": traced["launches"] / 3,
+            "replay_device_events": traced["device_events"] / 3,
+            "loss": [float(m["total_loss"]) for m in m1]}
+
+
+def _old_adam_update(opt, grads, state, params) -> None:
+    """The default Adam update as it was before its scalars were device
+    tensors: Python numbers, which torch on the card multiplies by as
+    reciprocals where they divide."""
+    from seq2squiggle_tpu_torch.train.optimizers import _update_moments, clip_by_global_norm
+
+    with torch.no_grad():
+        grads = clip_by_global_norm(grads, opt.clip)
+        lr = opt.schedule(state["sched_count"])
+        state["sched_count"] += 1
+        state["count"] += 1
+        count = state["count"]
+        for g, p, mu, nu in zip(grads, params, state["mu"], state["nu"]):
+            _update_moments(g, mu, nu, 0.9, 0.999)
+            mu_hat = mu / (1 - 0.9 ** count)
+            nu_hat = nu / (1 - 0.999 ** count)
+            p.add_((mu_hat / (nu_hat.sqrt() + 1e-7)) * -lr)
+
+
+def adam_division_inputs(n_updates: int = 5):
+    """The inputs of `hold_adam_division`: the default config, f32
+    parameters at its 84 leaf shapes and n_updates gradients (seed 7), every
+    gradient norm below the clip (1.0), so that no reduction's order enters
+    the update."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+
+    cfg = load_config(None)
+    shapes = [tuple(v.shape) for _, v in
+              fft_model.tree_leaves(fft_model.init_params(cfg, prng.key(SEED)))]
+    rng = np.random.default_rng(SEED)
+    p0 = [rng.standard_normal(s).astype(np.float32) * 0.1 for s in shapes]
+    grads = [[(rng.standard_normal(s) * scale).astype(np.float32) for s in shapes]
+             for scale in (0.001, 0.0005, 0.0015, 0.001, 0.0008)[:n_updates]]
+    return cfg, p0, grads
+
+
+def hold_adam_division(dev, n_updates: int = 5) -> dict:
+    """The default Adam (warmup_cosine, clip 1.0) on `adam_division_inputs`
+    for n_updates: the port's update on the CPU, which
+    tests/test_torch_port_train.py holds to the JAX package's optax update
+    on these inputs, against the port's update on the card, which divides
+    by the bias corrections, and against the update as it was
+    (`_old_adam_update`) on the card. Returns, for each card form, the
+    values of the parameters and moments that differ from the CPU's after
+    each update and the largest |difference|; the dividing form must be at
+    least as close on both counts."""
+    from seq2squiggle_tpu_torch.train.optimizers import build_optimizer
+
+    cfg, p0, grads = adam_division_inputs(n_updates)
+    runs = {}
+    for form, device in (("cpu", torch.device("cpu")), ("card", dev), ("card_old", dev)):
+        opt = build_optimizer(cfg, 100)
+        params = [torch.from_numpy(p.copy()).to(device) for p in p0]
+        state = opt.init(params)
+        after = []
+        for g in grads:
+            g = [torch.from_numpy(x).to(device) for x in g]
+            check(float(torch.sqrt(sum((x.double() ** 2).sum() for x in g))) < opt.clip,
+                  "Adam division: a gradient norm reached the clip")
+            if form == "card_old":
+                _old_adam_update(opt, g, state, params)
+            else:
+                opt.update(g, state, params)
+            after.append([t.detach().cpu().clone() for t in (*params, *state["mu"],
+                                                              *state["nu"])])
+        runs[form] = after
+    out = {}
+    for form in ("card", "card_old"):
+        out[form] = {"differ": [], "max_abs": []}
+        for got, ref in zip(runs[form], runs["cpu"]):
+            out[form]["differ"].append(sum(int((a != b).sum()) for a, b in zip(got, ref)))
+            out[form]["max_abs"].append(max(float((a - b).abs().max()) for a, b in zip(got, ref)))
+    out["values"] = sum(t.numel() for t in runs["cpu"][0])
+    new, old = out["card"], out["card_old"]
+    check(sum(new["differ"]) <= sum(old["differ"]) and max(new["max_abs"]) <= max(old["max_abs"]),
+          f"Adam on the card: the dividing update is further from the CPU's than the old one: "
+          f"{new} against {old}")
+    return out
+
+
+def _device_trace(run) -> dict:
+    """run() under torch.profiler (CPU and CUDA): the card's busy time (the
+    union of its kernel, copy and set intervals), the device events, the
+    host's kernel launches and graph launches, and the kernels by
+    `_kernel_counts`' groups, all and those the graph launches ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device, names, launches, graphs = [], [], 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            names.append(e.name())
+        elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx"):
+            launches += 1
+        elif e.name() in GRAPH_LAUNCHES:
+            graphs += 1
+    busy, end = 0, None
+    for a, b in sorted(device):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return {"busy_ms": busy * 1e-6, "device_events": len(device), "launches": launches,
+            "graph_launches": graphs, "kernels": _kernel_counts(names),
+            "graphs": _graph_kernels(prof.profiler.kineto_results.events())}
+
+
+def time_graphed_step(dev, steps: int = 20, rounds: int = 3) -> dict:
+    """The default train step (bf16, block rung, batch TRAIN_BATCH) through
+    the graph and eagerly, in interleaved rounds of `steps`: the host's ms
+    until a call returns, the wall ms a step with a synchronize at the end,
+    and from a profile of 5 steps the card's busy ms, its device events and
+    the host's launches a step."""
+    from seq2squiggle_tpu_torch import prng
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.models import fft_model
+    from seq2squiggle_tpu_torch.train.loop import make_train_step
+    from seq2squiggle_tpu_torch.train.optimizers import build_optimizer
+
+    cfg = load_config(None)
+    batch, mask = _train_batch(cfg, TRAIN_BATCH, seed=5)
+    batch, mask = {k: v.to(dev) for k, v in batch.items()}, mask.to(dev)
+    base = prng.key(SEED, dev)
+    ways = {}
+    for graphed in (True, False):
+        params = fft_model.to_train_params(fft_model.init_params(cfg, prng.key(SEED)), dev)
+        opt = build_optimizer(cfg, 100_000)
+        state = opt.init([v for _, v in fft_model.tree_leaves(params)])
+        step = make_train_step(cfg, opt)
+        call = step if graphed else step.eager
+        keys = [prng.fold_in(base, i) for i in range(steps)]
+        for k in keys[:3]:  # the warm-up and the capture
+            call(params, state, batch, mask, k)
+        ways["graph" if graphed else "eager"] = (call, params, state, keys)
+    got = {w: {"host_ms": [], "wall_ms": []} for w in ways}
+    for _ in range(rounds):
+        for w, (call, params, state, keys) in ways.items():
+            torch.cuda.synchronize()
+            t0, host = time.perf_counter(), 0.0
+            for k in keys:
+                h0 = time.perf_counter()
+                call(params, state, batch, mask, k)
+                host += time.perf_counter() - h0
+            torch.cuda.synchronize()
+            got[w]["host_ms"].append(1e3 * host / steps)
+            got[w]["wall_ms"].append(1e3 * (time.perf_counter() - t0) / steps)
+    out = {}
+    for w, (call, params, state, keys) in ways.items():
+        traced = _device_trace(lambda: [call(params, state, batch, mask, k) for k in keys[:5]])
+        kernels, graphs = traced.pop("kernels"), traced.pop("graphs")
+        out[w] = {"host_ms": statistics.median(got[w]["host_ms"]),
+                  "wall_ms": statistics.median(got[w]["wall_ms"]),
+                  **{k: v / 5 for k, v in traced.items()},
+                  "kernels": tuple(n / 5 for n in kernels), "graph_kernels": graphs["kernels"]}
+    return out
+
+
+def phase_graph(dev, smi, masks: dict) -> dict:
+    """Phase 20: the train step as a CUDA graph against its eager steps for
+    each run of GRAPH_CASES, the default Adam's division on the card
+    against the CPU's, the step's times both ways, and phase 19's `train`
+    command as replays. Returns what it measured."""
+    t_phase = time.perf_counter()
+    held = {}
+    for case in GRAPH_CASES:
+        held[case] = got = hold_graphed_step(dev, *case)
+        mode, dtype, optimizer, schedule = case
+        log(f"phase 20 at {mode}, {dtype}, {optimizer}, {schedule}: {GRAPH_STEPS} steps at "
+            f"batch {TRAIN_BATCH} and 3 at {TRAIN_BATCH // 2} through the graph and eagerly "
+            f"from one start: {got['leaves']} parameters, the optimizer's state and every "
+            f"metric bit-equal; (eager steps, captures, replays) {got['schedule']}; the host "
+            f"issued (block forward, block backward, core forward, core backward, threefry) "
+            f"{got['host']} graphed, {got['eager_host']} eager; 3 more replays: a step ran "
+            f"{got['replayed']} kernels, {got['replay_device_events']:.1f} device events, "
+            f"{got['replay_launches']:.1f} kernel launches")
+    division = hold_adam_division(dev)
+    for form, what in (("card", "dividing by the device scalars"),
+                       ("card_old", "as before, Python numbers")):
+        log(f"phase 20 Adam at the default leaves on the card, {what}: values of the "
+            f"parameters and moments differing from the CPU's update after each of "
+            f"{len(division[form]['differ'])} updates {division[form]['differ']} of "
+            f"{division['values']}, max |diff| {division[form]['max_abs']}")
+    times = time_graphed_step(dev)
+    for w, t in times.items():
+        log(f"phase 20 step ({w}, bf16, block, batch {TRAIN_BATCH}): host {t['host_ms']:.3f} ms "
+            f"to return, wall {t['wall_ms']:.3f} ms a step, card busy {t['busy_ms']:.3f} ms, "
+            f"{t['device_events']:.1f} device events, {t['launches']:.1f} kernel launches and "
+            f"{t['graph_launches']:.1f} graph launches a step [{smi}]")
+    check(times["graph"]["device_events"] > 0,
+          f"phase 20: the profiler saw no device work in the graphed steps: {times['graph']}")
+    counts = masks["train_counts"]
+    n = TRAIN_STEPS
+    check(counts.get("train.eager_steps") == 1 and counts.get("train.graph_captures") == 1
+          and counts.get("train.graph_replays") == n - 1,
+          f"phase 20: the train command counted {counts} for {n} steps, want 1 eager step, "
+          f"1 capture and {n - 1} replays")
+    log(f"phase 20 train command (phase 19's run): {n} steps, 1 eager, 1 capture, "
+        f"{n - 1} replays; a replayed step ran {masks['replayed']} kernels (block forward, "
+        f"block backward, core forward, core backward, threefry)")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"replayed": {"/".join(map(str, c)): g["replayed"] for c, g in held.items()},
+            "division": division, "times": times}
 
 
 def phase_pipeline(dev, main_recs, smi) -> dict:
@@ -2678,12 +3212,12 @@ def main() -> int:
     launches, _, recs, main_stats = phase_main_path(dev, pair=False)
     core = phase_core_kernels(dev)[torch.bfloat16]
     phase_train_step(dev, "core", "core")
-    (_, _, core_fwd_launches, core_bwd_launches), _, _ = phase_train_main_path(
-        dev, "core", epochs=1, steps=CORE_STEPS, resume=False, plots=False)
+    core_run, _, _ = phase_train_main_path(dev, "core", epochs=1, steps=CORE_STEPS,
+                                           resume=False, plots=False)
     block = phase_block_kernels(dev)[torch.bfloat16]
     phase_train_step(dev, "block", "auto")
-    (block_fwd_launches, block_bwd_launches, _, _), pngs, warnings = phase_train_main_path(
-        dev, None, epochs=2, steps=TRAIN_STEPS, resume=True)
+    block_run, pngs, warnings = phase_train_main_path(dev, None, epochs=2, steps=TRAIN_STEPS,
+                                                      resume=True)
     pair = phase_pair(params, dev)
     variants, variant_profile, cut_profile = phase_variants(params, dev)
     _, pair_launches, pair_recs, _ = phase_main_path(dev, pair=True)
@@ -2698,6 +3232,7 @@ def main() -> int:
     phase_pipeline(dev, recs, smi)
     gamma = phase_gamma(dev, recs, smi)
     masks = phase_masks(dev, smi)
+    phase_graph(dev, smi, masks)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16
@@ -2705,7 +3240,7 @@ def main() -> int:
     p_ms = 2 * (times[(bf16, 16)][1] + times[(bf16, 250)][1])
     fused_bound = [bound(*fused_block_work(BATCH, L, bf16), bf16) for L in (16, 250)]
 
-    def entry(name, source, replaces, launches, got, direction, work):
+    def entry(name, source, replaces, run, i, got, direction, work):
         bound_ms, bound_by = bound(*work(TRAIN_BATCH, 250, bf16, direction == "bwd"), bf16)
         extra = {}
         if name.startswith("packed_attention_core"):  # phase 16: a tp = 2 rank's 4 heads
@@ -2723,7 +3258,8 @@ def main() -> int:
                                  "within_bar": got["library_within_bar"]}}
         return {"name": name, "route": "cuda",
                 "source": f"seq2squiggle_tpu_torch/csrc/{source}",
-                "replaces": f"seq2squiggle_tpu/ops/pallas/{replaces}", "launches": launches,
+                "replaces": f"seq2squiggle_tpu/ops/pallas/{replaces}", "launches": run["host"][i],
+                "launches_per_replayed_step": run["replayed"][i],
                 "max_abs_err": got[f"{direction}_err"], "ms": got[direction],
                 "plain_ms": got[f"{direction}_plain"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": got.get(f"{direction}_library"), **extra}
@@ -2774,13 +3310,13 @@ def main() -> int:
                         for (dt, L), (k, p) in times.items()},
     },
         entry("packed_attention_core_fwd", "attn_core.cu", "attn_core.py:184",
-              core_fwd_launches, core, "fwd", core_work),
+              core_run, 2, core, "fwd", core_work),
         entry("packed_attention_core_bwd", "attn_core.cu", "attn_core.py:205",
-              core_bwd_launches, core, "bwd", core_work),
+              core_run, 3, core, "bwd", core_work),
         entry("fused_block_train_fwd", "block_train.cu", "block_train.py:304",
-              block_fwd_launches, block, "fwd", block_train_work),
+              block_run, 0, block, "fwd", block_train_work),
         entry("fused_block_train_bwd", "block_train.cu", "block_train.py:335",
-              block_bwd_launches, block, "bwd", block_train_work),
+              block_run, 1, block, "bwd", block_train_work),
         {"name": "fused_fft_block_pair", "route": "cuda",
          "source": "seq2squiggle_tpu_torch/csrc/fft_block.cu",
          "replaces": "seq2squiggle_tpu/ops/pallas/fft_block.py:466", "launches": pair_launches,
@@ -2808,7 +3344,7 @@ def main() -> int:
          "replaces": "no TPU kernel: prng.bernoulli in ops/attention.py::dropout_mask and "
                      "ops/block_train.py::make_dropout_scales, and prng.fold_in / split of "
                      "the train step's keys, in torch ops",
-         "launches": masks["launches"],
+         "launches": masks["launches"], "launches_per_replayed_step": masks["replayed"][4],
          "max_abs_err": max(g["max_abs_err"] for g in masks["held"].values()),
          "ms": masks["draw_ms"], "plain_ms": masks["draw_plain_ms"],
          "bound_ms": masks["draw_bound_ms"], "bound_by": masks["draw_bound_by"],

@@ -25,6 +25,7 @@ is exact and only the summation order differs from XLA's.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -70,6 +71,16 @@ def dropout_mask(key: torch.Tensor, keep: float, shape, mesh=None) -> torch.Tens
         return threefry.bernoulli(key, keep, shape, rows, start)
 
 
+@functools.cache
+def _keep_divisor(keep: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`keep` rounded to `dtype` (exact in float32) as a 0-dim float32 tensor
+    on `device`, made once by `full`, a fill and no copy from host memory: a
+    divisor on the device divides where a Python number would multiply by
+    its reciprocal on the card, and the train step's CUDA graph holds it."""
+    return torch.full((), float(torch.tensor(keep, dtype=dtype)), dtype=torch.float32,
+                      device=device)
+
+
 def _maybe_dropout(x: torch.Tensor, rate: float,
                    key: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """Inverted dropout with jax.random.bernoulli's mask for `key`.
@@ -80,7 +91,7 @@ def _maybe_dropout(x: torch.Tensor, rate: float,
         return x
     keep = 1.0 - rate
     mask = dropout_mask(key, keep, x.shape, mesh)
-    keep_cd = torch.tensor(keep, dtype=x.dtype, device=x.device).float()
+    keep_cd = _keep_divisor(keep, x.dtype, x.device)
     return torch.where(mask, (x.float() / keep_cd).to(x.dtype), torch.zeros_like(x))
 
 

@@ -10,8 +10,9 @@ Checkpoints and train states are the JAX package's files: either package
 loads the other's, and the port also resumes from the JAX package's legacy
 `train_state.pkl` (read without jax or optax, see `_LegacyUnpickler`).
 
-The step is eager PyTorch: loss, `.backward()`, the optimizer's update in
-place. The decoder's two blocks take the rung `pallas_train` names
+The step is PyTorch: loss, gradients, the optimizer's update in place; on
+one card it is captured in a CUDA graph and replayed (`TrainStep`). The
+decoder's two blocks take the rung `pallas_train` names
 (models/fft_model.py::_train_kernel_mode): `block` (also `true`, and `auto`
 in bfloat16 on a GPU, the default) runs each whole block through the
 hand-written forward and backward kernels of ops/block_train.py; `core` runs
@@ -130,32 +131,127 @@ def _dp_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tenso
     return dict(zip(names, summed))
 
 
-def make_train_step(config: dict, optimizer: Optimizer, mesh=None):
+class _Graph:
+    """One captured step: the key it was captured for, the CUDA graph, its
+    static inputs and its stacked metrics."""
+
+    def __init__(self, key, device, graph, batch, mask, dropout_key, names, out):
+        self.key, self.device, self.graph = key, device, graph
+        self.batch, self.mask, self.dropout_key = batch, mask, dropout_key
+        self.names, self.out = names, out
+
+    def replay(self, batch, mask, dropout_key) -> dict:
+        """The step on these inputs: one copy an input, the graph, one copy
+        of the metrics, whose views a caller may keep across later replays."""
+        with torch.cuda.device(self.device):
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
+            self.mask.copy_(mask)
+            self.dropout_key.copy_(dropout_key)
+            self.graph.replay()
+            out = self.out.clone()
+        tracing.count("train.graph_replays")
+        return dict(zip(self.names, out.unbind()))
+
+
+class TrainStep:
     """(params, opt_state, batch, mask, key) -> metrics; parameters and the
     optimizer state are updated in place. Under a mesh: the rank's slab and
     shards, the gradients summed over dp, the metrics the global batch's.
     Each call is a `train.step` span (tracing.py, switched on or off here),
     its id the call's number, with a `train.masks` span in it for each
-    dropout draw."""
-    tracing.switch_from_env()
-    calls = itertools.count()
+    dropout draw that the host issues.
 
-    def step(params, opt_state, batch, mask, key):
-        with tracing.span("train.step", next(calls)):
-            paths, leaves = zip(*tree_leaves(params))
-            _, metrics = loss_fn(params, batch, mask, config, key, mesh)
-            grads = dp_sum_all(torch.autograd.grad(metrics["total_loss"], leaves), mesh)
-            metrics = _dp_metrics(metrics, mesh)
-            # the global norm and each leaf's (grad_norm/<a/b/0/c>, the JAX
-            # package's names), whole leaves under tp
-            squares = leaf_square_sums(grads, optimizer.axes, mesh)
-            metrics["grad_norm"] = torch.sqrt(sum(squares.unbind()))
-            metrics.update({f"grad_norm/{'/'.join(p)}": n
-                            for p, n in zip(paths, squares.sqrt().unbind())})
-            optimizer.update(grads, opt_state, leaves)
-            return metrics
+    Every call first runs the optimizer's `advance` on the host (the counts
+    and the step's scalars); the step's body then runs `Optimizer.update`,
+    which leaves that half out, eagerly or under a capture. Where the call's
+    inputs allow it (the leaves, the batch, its mask and the key on one CUDA
+    device, and no mesh with a dp or tp group: NCCL is never captured) the
+    body runs as a CUDA graph. The first call of a graph key (the batch's
+    and mask's shapes and dtypes, the leaves' storage and
+    `Optimizer.graph_key`) runs eagerly, warming up the libraries and the
+    allocator; the next call with that key captures the whole body (loss,
+    gradients, norms, clip, the update) and replays it for its own work, and
+    every later call replays it: one copy of each input into the graph's,
+    one launch. A change of key captures again; a capture that fails raises.
+    The recorder counts `train.eager_steps`, `train.graph_captures` and
+    `train.graph_replays` (steps whose work a replay did). The kernels'
+    launch counters and `train.masks_kernel` count where the host issues a
+    launch, on eager steps and captures, as do the `train.masks` spans; a
+    replay issues none. `eager` runs one step without a graph, as a warm-up
+    call does."""
 
-    return step
+    def __init__(self, config: dict, optimizer: Optimizer, mesh=None):
+        tracing.switch_from_env()
+        self.config, self.optimizer, self.mesh = config, optimizer, mesh
+        self._calls = itertools.count()
+        self._graph: Optional[_Graph] = None
+        self._warmed = None  # the graph key of the last eager call
+
+    def _body(self, params, opt_state, batch, mask, key) -> Dict[str, torch.Tensor]:
+        config, optimizer, mesh = self.config, self.optimizer, self.mesh
+        paths, leaves = zip(*tree_leaves(params))
+        _, metrics = loss_fn(params, batch, mask, config, key, mesh)
+        grads = dp_sum_all(torch.autograd.grad(metrics["total_loss"], leaves), mesh)
+        metrics = _dp_metrics(metrics, mesh)
+        # the global norm and each leaf's (grad_norm/<a/b/0/c>, the JAX
+        # package's names), whole leaves under tp
+        squares = leaf_square_sums(grads, optimizer.axes, mesh)
+        metrics["grad_norm"] = torch.sqrt(sum(squares.unbind()))
+        metrics.update({f"grad_norm/{'/'.join(p)}": n
+                        for p, n in zip(paths, squares.sqrt().unbind())})
+        optimizer.update(grads, opt_state, leaves)
+        return metrics
+
+    def _graph_key(self, leaves, opt_state, batch, mask, key):
+        """The key a captured step holds fixed, or None where the step
+        cannot be captured."""
+        mesh = self.mesh
+        if mesh is not None and (mesh.dp_group is not None or mesh.tp_group is not None):
+            return None
+        device = leaves[0].device
+        if device.type != "cuda" or any(t.device != device for t in
+                                        (*leaves, *batch.values(), mask, key)):
+            return None
+        return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+                tuple(mask.shape), mask.dtype, tuple(key.shape), key.dtype,
+                tuple(p.data_ptr() for p in leaves), self.optimizer.graph_key(opt_state))
+
+    def _capture(self, graph_key, params, opt_state, batch, mask, key) -> _Graph:
+        self._graph = None  # the old graph's memory is free before the new one takes any
+        device = key.device
+        batch = {k: v.clone() for k, v in batch.items()}
+        mask, key = mask.clone(), key.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            metrics = self._body(params, opt_state, batch, mask, key)
+            out = torch.stack(list(metrics.values()))
+        tracing.count("train.graph_captures")
+        self._graph = _Graph(graph_key, device, graph, batch, mask, key, list(metrics), out)
+        return self._graph
+
+    def eager(self, params, opt_state, batch, mask, key) -> Dict[str, torch.Tensor]:
+        """One step without a graph."""
+        tracing.count("train.eager_steps")
+        return self._body(params, opt_state, batch, mask, key)
+
+    def __call__(self, params, opt_state, batch, mask, key) -> Dict[str, torch.Tensor]:
+        with tracing.span("train.step", next(self._calls)):
+            leaves = [v for _, v in tree_leaves(params)]
+            self.optimizer.advance(opt_state, leaves[0].device)
+            graph_key = self._graph_key(leaves, opt_state, batch, mask, key)
+            if self._graph is not None and self._graph.key == graph_key:
+                return self._graph.replay(batch, mask, key)
+            if graph_key is None or self._warmed != graph_key:
+                self._warmed = graph_key
+                return self.eager(params, opt_state, batch, mask, key)
+            return self._capture(graph_key, params, opt_state, batch, mask,
+                                 key).replay(batch, mask, key)
+
+
+def make_train_step(config: dict, optimizer: Optimizer, mesh=None) -> TrainStep:
+    """The run's train step (TrainStep)."""
+    return TrainStep(config, optimizer, mesh)
 
 
 def make_valid_step(config: dict, mesh=None):

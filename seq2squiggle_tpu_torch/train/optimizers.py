@@ -50,6 +50,7 @@ from ..parallel.mesh import gather_tensor, shard_axis, shard_tensor, spec_for, t
 logger = logging.getLogger("seq2squiggle_tpu_torch")
 
 Schedule = Callable[[int], float]
+ADAM_B1, ADAM_B2 = 0.9, 0.999  # optax's defaults, which the JAX package keeps
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
@@ -179,28 +180,37 @@ def _update_moments(g, mu, nu, b1: float, b2: float) -> None:
     nu.mul_(b2).addcmul_(g, g, value=1 - b2)
 
 
-def adam_direction(g, mu, nu, count: int, b1=0.9, b2=0.999, eps=1e-8) -> torch.Tensor:
-    """optax.scale_by_adam after `count` updates (count >= 1): moments updated
-    in place; returns mu_hat / (sqrt(nu_hat) + eps)."""
+def adam_direction(g, mu, nu, bc1, bc2, b1=ADAM_B1, b2=ADAM_B2, eps=1e-8) -> torch.Tensor:
+    """optax.scale_by_adam: moments updated in place; returns mu_hat /
+    (sqrt(nu_hat) + eps), where mu_hat = mu / bc1 and nu_hat = nu / bc2 and
+    bc1, bc2 are the step's bias corrections 1 - b1^count, 1 - b2^count
+    (0-dim tensors, `Optimizer.advance`)."""
     _update_moments(g, mu, nu, b1, b2)
-    mu_hat = mu / (1 - b1 ** count)
-    nu_hat = nu / (1 - b2 ** count)
+    mu_hat = mu / bc1
+    nu_hat = nu / bc2
     return mu_hat / (nu_hat.sqrt() + eps)
 
 
-def radam_direction(g, mu, nu, count: int, b1=0.9, b2=0.999, eps=1e-8,
-                    threshold=5.0) -> torch.Tensor:
-    """optax.scale_by_radam: the rectified Adam step once the variance of the
-    adaptive rate is tractable (ro >= threshold), else bias-corrected momentum."""
-    _update_moments(g, mu, nu, b1, b2)
+def radam_rectifier(count: int, b2=ADAM_B2, threshold=5.0) -> Optional[float]:
+    """optax.scale_by_radam's rectification r after `count` updates, or None
+    while the variance of the adaptive rate is intractable (ro < threshold)."""
     ro_inf = 2.0 / (1.0 - b2) - 1.0
     b2t = b2 ** count
     ro = ro_inf - 2 * count * b2t / (1 - b2t)
-    mu_hat = mu / (1 - b1 ** count)
     if ro < threshold:
+        return None
+    return math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+
+
+def radam_direction(g, mu, nu, bc1, bc2, r, b1=ADAM_B1, b2=ADAM_B2, eps=1e-8) -> torch.Tensor:
+    """optax.scale_by_radam: the rectified Adam step r * mu_hat / (sqrt(nu_hat)
+    + eps) where `radam_rectifier` gives an r, else (r None) bias-corrected
+    momentum mu_hat; bc1, bc2 and r are 0-dim tensors as in adam_direction."""
+    _update_moments(g, mu, nu, b1, b2)
+    mu_hat = mu / bc1
+    if r is None:
         return mu_hat
-    r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-    nu_hat = nu / (1 - b2t)
+    nu_hat = nu / bc2
     return r * mu_hat / (nu_hat.sqrt() + eps)
 
 
@@ -275,25 +285,27 @@ def adafactor_decay(count: int, decay_rate: float = 0.8) -> float:
     return float(1.0 - t ** -decay_rate)
 
 
-def adafactor_direction(g, v_row, v_col, v, decay: float, eps: float = 1e-30,
+def adafactor_direction(g, v_row, v_col, v, decay, fresh, eps: float = 1e-30,
                         axis=None, mesh=None) -> torch.Tensor:
     """optax.scale_by_factored_rms then clip_by_block_rms(1.0), with the
-    step's `decay` (adafactor_decay); the moments are updated in place. g is
-    the rank's shard of a leaf sharded over tp on `axis` (None: whole)."""
+    step's `decay` (adafactor_decay) and `fresh` = 1 - decay, taken in double
+    before its rounding to float32 (0-dim tensors, `Optimizer.advance`); the
+    moments are updated in place. g is the rank's shard of a leaf sharded
+    over tp on `axis` (None: whole)."""
     axis = _tp(axis, mesh)
     g2 = g * g + eps
     dims = factored_dims(_whole_shape(g.shape, axis, mesh))
     if dims is not None:
         d1, d0 = dims
-        v_row.copy_(decay * v_row + (1.0 - decay) * _mean(g2, d0, axis == d0, mesh))
-        v_col.copy_(decay * v_col + (1.0 - decay) * _mean(g2, d1, axis == d1, mesh))
+        v_row.copy_(decay * v_row + fresh * _mean(g2, d0, axis == d0, mesh))
+        v_col.copy_(decay * v_col + fresh * _mean(g2, d1, axis == d1, mesh))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_mean = _mean(v_row, reduced_d1, _drop_axis(axis, d0) == reduced_d1, mesh,
                          keepdim=True)
         row_factor = (v_row / row_mean) ** -0.5
         u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
     else:
-        v.copy_(decay * v + (1.0 - decay) * g2)
+        v.copy_(decay * v + fresh * g2)
         u = g * v ** -0.5
     return u / torch.clamp(_mean(u.square(), None, axis is not None, mesh).sqrt(), min=1.0)
 
@@ -308,7 +320,21 @@ def param_block_rms(p: torch.Tensor, min_scale: float = 1e-3, axis=None,
 class Optimizer:
     """clip -> weight decay -> direction -> -lr(step), as the JAX package
     chains optax transformations. `update` changes parameters and state in
-    place (the JAX package donates both to its jitted step)."""
+    place (the JAX package donates both to its jitted step).
+
+    An update has two halves. `advance` is the host's: it moves the state's
+    counts (Python ints) on and writes the step's scalars (the learning
+    rate, Adam's bias corrections, RAdam's rectification, AdaFactor's
+    decay), computed in double as optax's Python schedule is, into 0-dim
+    float32 tensors on the leaves' device with `fill_`, a value handed to a
+    kernel and no copy from host memory. The rest of `update` is the
+    device's: every operation reads those tensors and no Python number that
+    changes from step to step, so a CUDA graph captured around it
+    (train/loop.py) replays the right step after each `advance`. It divides
+    by the bias corrections as optax does. `update` runs `advance` first
+    unless its caller has run it for this update, as the train step does
+    before each call and each replay. `graph_key` is what a captured update
+    depends on beyond the scalars' values."""
 
     _MOMENTS = {"Adam": ("mu", "nu"), "AdamW": ("mu", "nu"), "RAdam": ("mu", "nu"),
                 "SGD": (), "RMSProp": ("nu",), "AdaFactor": ("v_row", "v_col", "v")}
@@ -330,6 +356,9 @@ class Optimizer:
         self.mesh = mesh if tp else None
         self.axes = list(axes) if tp else None
         self._whole = [tuple(s) for s in shapes] if tp else None
+        self._scalars: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._rectified: Optional[bool] = None  # RAdam's branch at the last advance
+        self._advanced = False  # an `advance` that no `update` has taken up yet
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         """The fresh state for `params` (the rank's shards under tp)."""
@@ -360,38 +389,72 @@ class Optimizer:
         axis = self._moment_axis(m, i)
         return tuple(n // self.mesh.n_tp if d == axis else n for d, n in enumerate(whole))
 
-    @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor], state: Dict,
-               params: Sequence[torch.Tensor]) -> None:
-        name, wd, mesh = self.name, self.weight_decay, self.mesh
-        if self.clip > 0:
-            grads = clip_by_global_norm(grads, self.clip, self.axes, mesh)
-        if wd and name not in ("AdamW", "AdaFactor"):  # L2 on the gradient, as torch's Adam
-            grads = [g + wd * p for g, p in zip(grads, params)]
+    def advance(self, state: Dict, device: torch.device) -> None:
+        """The host's half of an update: the counts move on, and the step's
+        scalars are written to their tensors on `device`."""
         lr = self.schedule(state["sched_count"])
         state["sched_count"] += 1
         if "count" in state:
             state["count"] += 1
-        if name == "AdaFactor":
+        if self.name == "AdaFactor":  # lr, then the parameter's scale, then the sign
             decay = adafactor_decay(state["count"] - 1)
+            values = {"lr": lr, "decay": decay, "fresh": 1.0 - decay}
+        else:
+            values = {"neg_lr": -lr}
+        if self.name in ("Adam", "AdamW", "RAdam"):
+            values.update(bc1=1 - ADAM_B1 ** state["count"], bc2=1 - ADAM_B2 ** state["count"])
+        if self.name == "RAdam":
+            r = radam_rectifier(state["count"])
+            self._rectified = r is not None
+            if r is not None:
+                values["r"] = r
+        scalars = self._scalars.setdefault(device, {})
+        for name, value in values.items():
+            if name not in scalars:
+                scalars[name] = torch.zeros((), dtype=torch.float32, device=device)
+            scalars[name].fill_(value)
+        self._advanced = True
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: Dict,
+               params: Sequence[torch.Tensor]) -> None:
+        """One update: `advance`, unless the caller has run it for this
+        update, then the device's half with the scalars it wrote."""
+        if not self._advanced:
+            self.advance(state, params[0].device)
+        self._advanced = False
+        name, wd, mesh = self.name, self.weight_decay, self.mesh
+        sc = self._scalars[params[0].device]
+        if self.clip > 0:
+            grads = clip_by_global_norm(grads, self.clip, self.axes, mesh)
+        if wd and name not in ("AdamW", "AdaFactor"):  # L2 on the gradient, as torch's Adam
+            grads = [g + wd * p for g, p in zip(grads, params)]
         for i, (g, p) in enumerate(zip(grads, params)):
-            if name == "AdaFactor":  # lr, then the parameter's scale, then the sign
-                u = adafactor_direction(g, state["v_row"][i], state["v_col"][i],
-                                        state["v"][i], decay, axis=self._axis(i), mesh=mesh)
-                p.sub_((lr * u) * param_block_rms(p, axis=self._axis(i), mesh=mesh))
+            if name == "AdaFactor":
+                u = adafactor_direction(g, state["v_row"][i], state["v_col"][i], state["v"][i],
+                                        sc["decay"], sc["fresh"], axis=self._axis(i), mesh=mesh)
+                p.sub_((sc["lr"] * u) * param_block_rms(p, axis=self._axis(i), mesh=mesh))
                 continue
             if name in ("Adam", "AdamW"):
-                u = adam_direction(g, state["mu"][i], state["nu"][i], state["count"],
+                u = adam_direction(g, state["mu"][i], state["nu"][i], sc["bc1"], sc["bc2"],
                                    eps=1e-7)
                 if name == "AdamW":
                     u = u + wd * p
             elif name == "RAdam":
-                u = radam_direction(g, state["mu"][i], state["nu"][i], state["count"])
+                u = radam_direction(g, state["mu"][i], state["nu"][i], sc["bc1"], sc["bc2"],
+                                    sc["r"] if self._rectified else None)
             elif name == "RMSProp":
                 u = rms_direction(g, state["nu"][i])
             else:  # SGD
                 u = g
-            p.add_(u * -lr)
+            p.add_(u * sc["neg_lr"])
+
+    def graph_key(self, state: Dict) -> tuple:
+        """What a captured update of `state` holds fixed besides the
+        scalars' values: the rule, RAdam's branch at the last `advance` and
+        the moments' storage."""
+        return (self.name, self._rectified,
+                tuple(t.data_ptr() for m in self._MOMENTS[self.name] for t in state[m]))
 
     def state_leaves(self, state: Dict) -> List[np.ndarray]:
         """The state as optax's tree_leaves would list it, whole leaves: a

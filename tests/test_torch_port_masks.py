@@ -190,7 +190,7 @@ def test_make_dropout_scales_on_a_dp_slab_is_the_global_draws_rows():
 def test_cpu_train_step_draws_its_eleven_masks_on_the_plain_path(counting):
     """One train step on the CPU: 11 `train.masks` spans, every element on the
     plain path (the encoder's 4 and the heads' 3 draws at (B, K, D), the
-    decoder's 4 at (B, T, D)), no kernel launch."""
+    decoder's 4 at (B, T, D)), no kernel launch, an eager step."""
     cfg = dict(load_config(None), compute_dtype="float32", max_signal_len=40)
     B, K, T, D = 3, cfg["max_dna_len"], cfg["max_signal_len"], cfg["dmodel"]
     rng = np.random.default_rng(0)
@@ -208,7 +208,8 @@ def test_cpu_train_step_draws_its_eleven_masks_on_the_plain_path(counting):
     tloop.make_train_step(cfg, opt)(params, state, batch, torch.ones(B), prng.key(SEED))
     got = tracing.totals()
     assert got.spans["train.masks"][0] == 11 and got.spans["train.step"][0] == 1
-    assert got.counts == {"train.masks_plain": 7 * B * K * D + 4 * B * T * D}
+    assert got.counts == {"train.masks_plain": 7 * B * K * D + 4 * B * T * D,
+                          "train.eager_steps": 1}
     assert tthreefry.launches == launches
 
 

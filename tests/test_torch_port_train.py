@@ -186,6 +186,30 @@ def test_optimizer_matches_optax(name, wd, factored):
         to.restore_state(to.init(tp), ref_leaves[:-1] if len(ref_leaves) > 1 else [])
 
 
+def test_default_adam_matches_optax_on_the_division_inputs():
+    """The port's default Adam on the CPU against the JAX package's optax
+    update at the default config's 84 leaves, on the inputs on which
+    chip_smoke.py (phase 20) holds the card's update against this CPU
+    update: the CPU's is the reference the card's division is measured
+    by."""
+    import chip_smoke
+
+    cfg, p0, grads = chip_smoke.adam_division_inputs()
+    names = [f"{i:03d}" for i in range(len(p0))]
+    jo = jopt.build_optimizer(cfg, 100)
+    jp = {k: jnp.asarray(v) for k, v in zip(names, p0)}
+    js = jo.init(jp)
+    to = topt.build_optimizer(cfg, 100)
+    tp = [torch.from_numpy(v.copy()) for v in p0]
+    ts = to.init(tp)
+    for g in grads:
+        upd, js = jo.update({k: jnp.asarray(v) for k, v in zip(names, g)}, js, jp)
+        jp = optax.apply_updates(jp, upd)
+        to.update([torch.from_numpy(v) for v in g], ts, tp)
+        for k, t in zip(names, tp):
+            np.testing.assert_allclose(t.numpy(), np.asarray(jp[k]), rtol=1e-5, atol=1e-7)
+
+
 def test_unported_training_options_raise(tmp_path):
     """Every training option is ported (tensor parallelism since ROADMAP A12);
     what is left to raise is the JAX package's own refusal: a tp degree that
