@@ -1108,7 +1108,7 @@ def phase_variants(params_by_dtype, dev):
                            fb.fused_fft_block_reference(x, block, 8))
 
     # the timing scripts: launches counted over their timed rounds only
-    x, fns, _ = script.setup(cuda_cores=False)
+    x, fns, _ = script.setup()
     tv.launches_abc = tv.launches_d = tv.launches_parts = 0
     prof = script.timed(x, fns, rounds=2)
     launches = {"abc": tv.launches_abc, "d": tv.launches_d, "parts": tv.launches_parts}

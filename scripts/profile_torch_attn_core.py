@@ -1,23 +1,13 @@
-"""Time the attention-core kernels of the PyTorch port on one GPU, with the
-two compile-time choices of csrc/attn_core.cu turned the other way beside
-them, and the exp floor that holds the bfloat16 kernels.
+"""Time the attention-core kernels of the PyTorch port (csrc/attn_core.cu, in
+the package's library) on one GPU, beside the library's attention, and the
+exp floor that holds the bfloat16 kernels.
 
     python scripts/profile_torch_attn_core.py [--rounds 4] [--batch 512]
 
-csrc/attn_core.cu is built on its own (it needs no other source) once per
-variant, all nvcc runs started together, into build/torch_kernels/variants/:
-
-  as built     the file as the package builds it: ex2.approx on base-2
-               exponents, 256 threads per thread block
-  expf         -DS2S_ATTN_CORE_EXPF=1: libm's expf on natural exponents
-  128 threads, 512 threads
-               -DS2S_ATTN_CORE_MMA_THREADS=...: 4 or 16 warps per (batch
-               row, head)
-
-At (batch, 250, 64) bfloat16, inputs standard normal from numpy seed 0, every
-variant's forward and backward are first held against the plain versions of
+At (batch, 250, 64) bfloat16, inputs standard normal from numpy seed 0, the
+kernels' forward and backward are first held against the plain versions of
 ops/attn_core.py (forward within 4 bf16 ULPs of max|plain|, gradients within
-8 of max(1, max|plain|); a variant that disagrees raises) and then timed in
+8 of max(1, max|plain|); a kernel that disagrees raises) and then timed in
 interleaved rounds (CUDA events around 20 launches after one warm-up launch),
 with F.scaled_dot_product_attention and its backward, the yardstick, in the
 same rounds. Reported: the minimum over the rounds and the rounds, in ms.
@@ -50,21 +40,9 @@ sys.path.insert(0, str(ROOT))
 from seq2squiggle_tpu_torch.ops import _build  # noqa: E402
 from seq2squiggle_tpu_torch.ops import attn_core as ac  # noqa: E402
 
-VARIANTS = {
-    "as built": [],
-    "expf": ["-DS2S_ATTN_CORE_EXPF=1"],
-    "128 threads": ["-DS2S_ATTN_CORE_MMA_THREADS=128"],
-    "512 threads": ["-DS2S_ATTN_CORE_MMA_THREADS=512"],
-}
 N_HEAD = 8
 LAUNCHES = 20  # per timed reading
 MUFU_PER_CLOCK = 16  # exps a clock per SM (four schedulers, four lanes each)
-
-
-def build_variants() -> dict:
-    """name -> the ctypes library of csrc/attn_core.cu built with its flags."""
-    src = _build.sources(["attn_core.cu"])
-    return _build.build_variants({name: (src, flags) for name, flags in VARIANTS.items()})
 
 
 def _call(fn, tensors, B, L):
@@ -105,30 +83,27 @@ def profile(rounds: int = 4, batch: int = 512, L: int = 250) -> dict:
     q, k, v, g = (torch.from_numpy(rng.standard_normal((batch, L, 64)).astype(np.float32))
                   .to(dev, torch.bfloat16) for _ in range(4))
     out, gq, gk, gv = (torch.empty_like(q) for _ in range(4))
-    libs = build_variants()
+    lib = _build.load()
 
     ref = ac.packed_attention_core_reference(q, k, v, N_HEAD)
     refs = ac.packed_attention_core_backward_reference(q, k, v, g, N_HEAD)
     ulp = 2.0 ** -8
-    errs, fns = {}, {}
-    for name, lib in libs.items():
-        fns[f"fwd {name}"] = lambda lib=lib: _call(lib.s2s_attn_core_fwd, (q, k, v, out),
-                                                   batch, L)
-        fns[f"bwd {name}"] = lambda lib=lib: _call(lib.s2s_attn_core_bwd,
-                                                   (q, k, v, g, gq, gk, gv), batch, L)
-        fns[f"fwd {name}"]()
-        fns[f"bwd {name}"]()
-        torch.cuda.synchronize()
-        f_err = (out.float() - ref.float()).abs().max().item()
-        if not f_err <= 4 * ulp * ref.float().abs().max().item():
-            raise AssertionError(f"{name}: forward max|kernel - plain| {f_err}")
-        b_err = 0.0
-        for got, want in zip((gq, gk, gv), refs):
-            err = (got.float() - want.float()).abs().max().item()
-            if not err <= 8 * ulp * max(1.0, want.float().abs().max().item()):
-                raise AssertionError(f"{name}: gradient max|kernel - plain| {err}")
-            b_err = max(b_err, err)
-        errs[name] = {"fwd": f_err, "bwd": b_err}
+    fns = {"fwd kernel": lambda: _call(lib.s2s_attn_core_fwd, (q, k, v, out), batch, L),
+           "bwd kernel": lambda: _call(lib.s2s_attn_core_bwd, (q, k, v, g, gq, gk, gv),
+                                       batch, L)}
+    fns["fwd kernel"]()
+    fns["bwd kernel"]()
+    torch.cuda.synchronize()
+    f_err = (out.float() - ref.float()).abs().max().item()
+    if not f_err <= 4 * ulp * ref.float().abs().max().item():
+        raise AssertionError(f"forward max|kernel - plain| {f_err}")
+    b_err = 0.0
+    for got, want in zip((gq, gk, gv), refs):
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= 8 * ulp * max(1.0, want.float().abs().max().item()):
+            raise AssertionError(f"gradient max|kernel - plain| {err}")
+        b_err = max(b_err, err)
+    errs = {"fwd": f_err, "bwd": b_err}
     del ref, refs
 
     def heads(t):

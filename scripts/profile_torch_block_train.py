@@ -1,38 +1,31 @@
 """Time the whole-block training kernels of the PyTorch port on one GPU: the
-forward, the backward and each of the backward's six launches, back to back,
-with the compile-time switch of csrc/block_train.cu turned the other way
-beside them.
+forward, the backward and each of the backward's six launches, back to back.
 
     python scripts/profile_torch_block_train.py [--rounds 4] [--batch 512] [--against CHECKOUT]
     python scripts/profile_torch_block_train.py --relu-flips [--batch 512] [--length 250]
 
-csrc/block_train.cu is built with csrc/attn_core.cu (its backward runs the
-attention-core backward as one stage) once per variant, all nvcc runs started
-together, into build/torch_kernels/variants/ (`_build.build_variants`):
-
-  as built    the two files as the package builds them: bfloat16 on the
-              tensor cores, a warp per 16-row slab, the weights staged in
-              shared memory once per block (csrc/block_mma.cuh's body)
-  CUDA cores  -DS2S_BLOCK_TRAIN_CUDA_CORES=1: bfloat16 through the float32
-              path's kernels (a warp per position, the weights streamed from
-              L1/L2 for every position)
-  as built, <name>  with --against CHECKOUT: CHECKOUT's two files as that
-              tree's package builds them (its C interface must be this
-              tree's), to compare two trees in the same rounds on one card
+"as built" is the package's own library: bfloat16 on the tensor cores, a warp
+per 16-row slab, the weights staged in shared memory once per block
+(csrc/block_mma.cuh's body). With --against, CHECKOUT's csrc/block_train.cu
+and csrc/attn_core.cu (the backward runs the attention-core backward as one
+stage) are built together as that tree's package builds them (its C
+interface must be this tree's), into build/torch_kernels/variants/
+(`_build.build_variants`), and timed in the same rounds as "as built,
+<CHECKOUT's directory name>", to compare two trees on one card.
 
 At (batch, 250, 64) bfloat16 with dropout scales (rate 0.2), inputs standard
 normal from numpy seed 0, the block's weights the model's init from seed 7,
-every variant is first held against the plain versions of ops/block_train.py
+every build is first held against the plain versions of ops/block_train.py
 (forward within 4 bf16 ULPs of max(1, max|plain|); gx within 8 on all but
 1e-4 of its entries; each weight gradient within 2e-2·max(1, max|plain|); a
-variant that disagrees raises) and then timed in interleaved rounds: CUDA
+build that disagrees raises) and then timed in interleaved rounds: CUDA
 events around 20 launches after one warm-up launch. A stage of the backward
 is launched alone on the buffers a whole call left (each reads what the
 earlier ones wrote). Reported: the minimum over the rounds and the rounds, ms.
 
---relu-flips times nothing. For each variant it counts the entries of the
-256-wide hidden layer whose relu mask differs between the kernel (f1 > 0 in
-the backward's workspace) and the plain version (pre > 0): a pre-activation
+--relu-flips times nothing. For the package's library it counts the entries
+of the 256-wide hidden layer whose relu mask differs between the kernel (f1 >
+0 in the backward's workspace) and the plain version (pre > 0): a pre-activation
 that lands on the other side of 0 moves that position's W1, b1 and upstream
 gradients by a whole term. It prints the count, the positions that hold one,
 the largest |pre| of the plain version at such an entry (a flip is a
@@ -61,21 +54,21 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-VARIANTS = {"as built": [], "CUDA cores": ["-DS2S_BLOCK_TRAIN_CUDA_CORES=1"]}
 N_HEAD = 8
 RATE = 0.2
 LAUNCHES = 20  # per timed reading
 ULP = 2.0 ** -8
 
 
-def build_variants(_build, against: pathlib.Path | None = None) -> dict:
-    """name -> the ctypes library of block_train.cu + attn_core.cu with its
-    flags (and of `against`'s two files as built)."""
-    names = ("block_train.cu", "attn_core.cu")
-    builds = {name: (_build.sources(names), flags) for name, flags in VARIANTS.items()}
+def libraries(_build, against: pathlib.Path | None = None) -> dict:
+    """name -> ctypes library: the package's, and `against`'s block_train.cu
+    + attn_core.cu as built."""
+    libs = {"as built": _build.load()}
     if against is not None:
-        builds[f"as built, {against.name}"] = (_build.sources(names, against), [])
-    return _build.build_variants(builds)
+        name = f"as built, {against.name}"
+        srcs = _build.sources(("block_train.cu", "attn_core.cu"), against)
+        libs.update(_build.build_variants({name: (srcs, [])}))
+    return libs
 
 
 def time_ms(fn) -> float:
@@ -115,7 +108,7 @@ def interleaved(fns: dict, rounds: int) -> dict:
 
 
 def hold(name, bt, lib, x, g, scales, weights, ref, refs) -> dict:
-    """One variant against the plain versions; raises where it disagrees."""
+    """One build against the plain versions; raises where it disagrees."""
     out = bt._launch_fwd(x, weights, *scales, N_HEAD, lib=lib)
     gx, gws = bt._launch_bwd(x, weights, *scales, g, N_HEAD, lib=lib)
     torch.cuda.synchronize()
@@ -139,7 +132,7 @@ def profile(rounds: int = 4, batch: int = 512, L: int = 250,
     from seq2squiggle_tpu_torch.ops import block_train as bt
 
     x, g, scales, weights = inputs(bt, batch, L, torch.bfloat16)
-    libs = build_variants(_build, against)
+    libs = libraries(_build, against)
     ref = bt.fused_block_train_reference(x, weights, *scales, N_HEAD)
     refs = bt.fused_block_train_backward_reference(x, weights, *scales, g, N_HEAD)
     errs, fns = {}, {}
@@ -191,7 +184,7 @@ def relu_flips(rounds: int = 0, batch: int = 512, L: int = 250) -> dict:
     from seq2squiggle_tpu_torch.ops import block_train as bt
 
     x, g, scales, weights = inputs(bt, batch, L, torch.bfloat16)
-    libs = build_variants(_build)
+    libs = libraries(_build)
     pre = bt._recompute(x, weights, *scales, N_HEAD)["pre"]
     i_w1, i_b1 = (bt.WEIGHT_FIELDS.index(("ffn", "w_1", leaf)) for leaf in ("kernel", "bias"))
 

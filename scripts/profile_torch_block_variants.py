@@ -1,7 +1,6 @@
 """Time the profiling variants of the fused FFT block on one GPU: the
 counterpart of scripts/profiling/profile_abc.py, profile_d.py and
-profile_parts2.py for the PyTorch port, in the package's design and in the
-CUDA-core one beside it.
+profile_parts2.py for the PyTorch port.
 
     python scripts/profile_torch_block_variants.py [--rounds 4] [--batch 2048]
 
@@ -21,12 +20,7 @@ per kernel: the minimum over the rounds, in ms per block, and the rounds.
   proj ... full  the block cut after each stage (fused_parts), each with the
                  difference to the stage before it
 
-Two designs: the package's (bfloat16 on the fused block's tensor-core body,
-csrc/block_mma.cuh), and, suffixed "CUDA cores", csrc/fft_block_variants.cu
-built alone with -DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1 into
-build/torch_kernels/variants/ (`_build.build_variants`; bfloat16 through the CUDA-core kernels of the
-float32 path, which only this script builds), held against the same plain
-versions and timed in the same rounds.
+bfloat16 runs on the fused block's tensor-core body (csrc/block_mma.cuh).
 
 Prints the card as nvidia-smi names it, one line per kernel, and as its last
 line one JSON object with every number.
@@ -48,43 +42,22 @@ sys.path.insert(0, str(ROOT))
 
 from seq2squiggle_tpu_torch.models.fft_model import to_device  # noqa: E402
 from seq2squiggle_tpu_torch.models.weights import load_checkpoint  # noqa: E402
-from seq2squiggle_tpu_torch.ops import _build  # noqa: E402
-from seq2squiggle_tpu_torch.ops import fft_block as fb  # noqa: E402
 from seq2squiggle_tpu_torch.ops import fft_block_variants as tv  # noqa: E402
 from seq2squiggle_tpu_torch.ops.fft_block import fused_fft_block  # noqa: E402
 
 R10 = ROOT / "assets" / "bench-weights-R10.npz"
 N_HEAD = 8
 LAUNCHES = 8  # per timed reading
-CUDA_CORES = " CUDA cores"  # the suffix of the CUDA-core build's kernels
-ENTRIES = ("s2s_fft_block_abc", "s2s_fft_block_d", "s2s_fft_block_parts")
 
 
-def build_cuda_cores():
-    """csrc/fft_block_variants.cu alone, bfloat16 through the CUDA-core kernels."""
-    return _build.build_variants({"CUDA cores": (
-        _build.sources(["fft_block_variants.cu"]),
-        ["-DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1"])})["CUDA cores"]
-
-
-def kernels(block, cuda_cores=None) -> dict:
-    """name -> function of x, in the order they are reported; with the
-    CUDA-core build's library, its a ... full too."""
+def kernels(block) -> dict:
+    """name -> function of x, in the order they are reported."""
     fns = {v: (lambda x, v=v: tv.fused_abc(x, block, N_HEAD, v)) for v in tv.ABC_VARIANTS}
     fns["d"] = lambda x: tv.fused_d(x, block, N_HEAD, "d")
     fns["block exact"] = lambda x: fused_fft_block(x, block, N_HEAD, packed=False)
     fns["block shift"] = lambda x: fused_fft_block(x, block, N_HEAD, packed=True)
     for stage in tv.STAGES:
         fns[stage] = lambda x, s=stage: tv.fused_parts(x, block, N_HEAD, s)
-    if cuda_cores is not None:
-        wq = block["attn"]["w_qs"]["kernel"]
-        ptrs = fb._weight_pointers(block, torch.bfloat16, wq.device)
-        calls = ([(v, ENTRIES[0], i) for i, v in enumerate(tv.ABC_VARIANTS)]
-                 + [("d", ENTRIES[1], 1)]
-                 + [(st, ENTRIES[2], i) for i, st in enumerate(tv.STAGES)])
-        for name, entry, option in calls:
-            fns[name + CUDA_CORES] = (lambda x, e=entry, o=option:
-                                      fb.launch_kernel(e, x, ptrs, o, lib=cuda_cores))
     return fns
 
 
@@ -109,7 +82,7 @@ def time_ms(fn, x) -> float:
     return start.elapsed_time(end) / LAUNCHES
 
 
-def setup(batch: int = 2048, L: int = 250, check_rows: int = 8, cuda_cores: bool = True):
+def setup(batch: int = 2048, L: int = 250, check_rows: int = 8):
     """The inputs and every kernel, each held against its plain version on
     the first check_rows rows (raises where one disagrees, or where c is
     not bit-equal to b). Returns (x, {name: function of x}, {name: max|err|})."""
@@ -119,50 +92,41 @@ def setup(batch: int = 2048, L: int = 250, check_rows: int = 8, cuda_cores: bool
     x = torch.from_numpy(
         (np.random.default_rng(0).standard_normal((batch, L, 64)) * 0.1).astype(np.float32)
     ).to(dev, torch.bfloat16)
-    fns = kernels(block, build_cuda_cores() if cuda_cores else None)
+    fns = kernels(block)
 
     errs = {}
     head = x[:check_rows]
     for name, ref_fn in plain_versions(block).items():
         ref = ref_fn(head)
-        for design in ("", CUDA_CORES):
-            if name + design not in fns:
-                continue
-            got = fns[name + design](head)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            tol = 4 * 2.0 ** -8 * max(1.0, ref.float().abs().max().item())
-            if not (err <= tol and bool(torch.isfinite(got).all())):
-                raise AssertionError(f"{name + design}: max|kernel - plain| {err} > {tol}")
-            errs[name + design] = err
-    for design in ("", CUDA_CORES):
-        if "c" + design in fns and not torch.equal(fns["c" + design](head),
-                                                   fns["b" + design](head)):
-            raise AssertionError(f"variant c{design} is not bit-equal to b")
+        got = fns[name](head)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = 4 * 2.0 ** -8 * max(1.0, ref.float().abs().max().item())
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name}: max|kernel - plain| {err} > {tol}")
+        errs[name] = err
+    if not torch.equal(fns["c"](head), fns["b"](head)):
+        raise AssertionError("variant c is not bit-equal to b")
     return x, fns, errs
 
 
 def timed(x, fns: dict, rounds: int) -> dict:
     """Every kernel in interleaved rounds: {"ms": {name: min}, "rounds":
-    {name: [...]}, "stage_delta_ms": {stage: ms}} (each design's stages)."""
+    {name: [...]}, "stage_delta_ms": {stage: ms}}."""
     readings = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
             readings[name].append(time_ms(fn, x))
     ms = {name: min(times) for name, times in readings.items()}
-    deltas = {}
-    for design in ("", CUDA_CORES):
-        if "full" + design not in ms:
-            continue
-        prev = 0.0
-        for stage in tv.STAGES:
-            deltas[stage + design] = ms[stage + design] - prev
-            prev = ms[stage + design]
+    deltas, prev = {}, 0.0
+    for stage in tv.STAGES:
+        deltas[stage] = ms[stage] - prev
+        prev = ms[stage]
     return {"ms": ms, "rounds": readings, "stage_delta_ms": deltas}
 
 
-def profile(rounds: int = 4, batch: int = 2048, L: int = 250, cuda_cores: bool = True) -> dict:
-    x, fns, errs = setup(batch, L, cuda_cores=cuda_cores)
+def profile(rounds: int = 4, batch: int = 2048, L: int = 250) -> dict:
+    x, fns, errs = setup(batch, L)
     return {"shape": [batch, L, 64], "dtype": "bfloat16", "launches_per_reading": LAUNCHES,
             "max_abs_err": errs, **timed(x, fns, rounds)}
 

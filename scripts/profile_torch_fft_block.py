@@ -1,21 +1,14 @@
 """Time the fused FFT block and its pair (csrc/fft_block.cu) on one GPU, bf16,
-back to back, as the package builds them and with bf16 sent through the
-CUDA-core body.
+back to back.
 
     python scripts/profile_torch_fft_block.py [--rounds 4] [--batch 1024] [--against CHECKOUT]
 
-csrc/fft_block.cu is built alone twice, both nvcc runs started together, into
-build/torch_kernels/variants/ (`_build.build_variants`; three times with
---against: the third is CHECKOUT's csrc/fft_block.cu as that tree's package
-builds it, named "tensor cores, <CHECKOUT's directory name>", to compare two
-trees in the same rounds on one card):
-
-  tensor cores  as the package builds it: bf16 through csrc/block_mma.cuh (a
-                warp per 16-row slab, `mma.sync` against weights staged in
-                shared memory once per thread block)
-  CUDA cores    -DS2S_FFT_BLOCK_CUDA_CORES=1: bf16 through
-                csrc/fft_block_body.cuh, the f32 path's body (a row per warp,
-                the weights streamed from L1/L2 for every row)
+"as built" is the package's own library: bf16 through csrc/block_mma.cuh (a
+warp per 16-row slab, `mma.sync` against weights staged in shared memory once
+per thread block). With --against, CHECKOUT's csrc/fft_block.cu is built alone
+as that tree's package builds it, into build/torch_kernels/variants/
+(`_build.build_variants`), and timed in the same rounds as "as built,
+<CHECKOUT's directory name>", to compare two trees on one card.
 
 With the decoder blocks of assets/bench-weights-R10.npz and inputs standard
 normal from numpy seed 0, each build is first held against the plain
@@ -47,19 +40,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-VARIANTS = {"tensor cores": [], "CUDA cores": ["-DS2S_FFT_BLOCK_CUDA_CORES=1"]}
 N_HEAD = 8
 LAUNCHES = 20  # per timed reading
 ULP = 2.0 ** -8
 
 
-def build_variants(_build, against: pathlib.Path | None = None) -> dict:
-    """name -> the ctypes library of fft_block.cu built with its flags (and
-    of `against`'s fft_block.cu as built)."""
-    builds = {name: (_build.sources(["fft_block.cu"]), flags) for name, flags in VARIANTS.items()}
+def libraries(_build, against: pathlib.Path | None = None) -> dict:
+    """name -> ctypes library: the package's, and `against`'s fft_block.cu
+    as built."""
+    libs = {"as built": _build.load()}
     if against is not None:
-        builds[f"tensor cores, {against.name}"] = (_build.sources(["fft_block.cu"], against), [])
-    return _build.build_variants(builds)
+        name = f"as built, {against.name}"
+        libs.update(_build.build_variants({name: (_build.sources(["fft_block.cu"], against), [])}))
+    return libs
 
 
 def time_ms(fn) -> float:
@@ -98,7 +91,7 @@ def profile(rounds: int = 4, batch: int = 1024, against: pathlib.Path | None = N
     refs = {what: fb.fused_fft_block_reference(x, b0, N_HEAD, packed=not exact)
             for what, x, exact in one_block}
     pair_ref = fb.fused_fft_block_pair_reference(x250, b0, b1, N_HEAD, packed=True)
-    libs = build_variants(_build, against)
+    libs = libraries(_build, against)
     errors, fns = {}, {}
     for name, lib in libs.items():
         errs = {}
@@ -122,12 +115,8 @@ def profile(rounds: int = 4, batch: int = 1024, against: pathlib.Path | None = N
     for _ in range(rounds):
         for name, fn in fns.items():
             readings[name].append(time_ms(fn))
-    ms = {name: min(times) for name, times in readings.items()}
-    speedup = {what: ms[f"{what}: CUDA cores"] / ms[f"{what}: tensor cores"]
-               for what in ("one block 250 shift", "one block 250 exact", "one block 16 exact",
-                            "pair 250 shift")}
     return {"batch": batch, "dtype": "bfloat16", "launches_per_reading": LAUNCHES,
-            "ms": ms, "rounds": readings, "speedup_over_cuda_cores": speedup,
+            "ms": {name: min(times) for name, times in readings.items()}, "rounds": readings,
             "errors": errors}
 
 
@@ -159,8 +148,6 @@ def main() -> int:
     for name, best in result["ms"].items():
         rounds = ", ".join(f"{t:.4f}" for t in result["rounds"][name])
         print(f"{name:36s}: min {best:8.4f} ms  (rounds: {rounds})", flush=True)
-    for what, x in result["speedup_over_cuda_cores"].items():
-        print(f"{what}: tensor cores {x:.2f}x the CUDA-core build", flush=True)
     print(json.dumps({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                       **result}), flush=True)
     return 0

@@ -206,15 +206,9 @@ attn_core_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---- bf16 on the tensor cores ------------------------------------------------
 
-// A choice made by measurement (scripts/profile_torch_attn_core.py builds this
-// file with the other values and times them in turns; PERF.md has the
-// numbers): the threads of a thread block of the tensor-core kernels. The
-// other, the form of the exp, is in row_mma.cuh with the sweep it belongs to.
-#ifndef S2S_ATTN_CORE_MMA_THREADS
-#define S2S_ATTN_CORE_MMA_THREADS 256
-#endif
-
-constexpr int MMA_THREADS = S2S_ATTN_CORE_MMA_THREADS;
+// Threads a thread block of the tensor-core kernels: 256 beat 128 and 512 on
+// the H100 (the history of PERF.md has the numbers).
+constexpr int MMA_THREADS = 256;
 constexpr int WARPS = MMA_THREADS / 32;
 
 // The fragment loads, the mma steps, the exp on the fragment (`exp_pair`,

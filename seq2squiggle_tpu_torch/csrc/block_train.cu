@@ -73,16 +73,6 @@
 
 #include <type_traits>
 
-// A compile-time switch, 0 as the package builds this file;
-// scripts/profile_torch_block_train.py builds it with 1 and times the result
-// beside the package's build, in one call on one card:
-//   S2S_BLOCK_TRAIN_CUDA_CORES  bf16 takes the f32 path's kernels (one warp
-//                               per position on the CUDA cores, weights
-//                               streamed from L1/L2 per position)
-#ifndef S2S_BLOCK_TRAIN_CUDA_CORES
-#define S2S_BLOCK_TRAIN_CUDA_CORES 0
-#endif
-
 namespace {
 
 using namespace s2s;
@@ -969,7 +959,7 @@ reduce_partials_kernel(const float* __restrict__ part_m, const float* __restrict
 
 // bf16 takes the tensor-core kernels, f32 the CUDA-core ones.
 template <typename T>
-constexpr bool USE_MMA = std::is_same<T, bf16>::value && !S2S_BLOCK_TRAIN_CUDA_CORES;
+constexpr bool USE_MMA = std::is_same<T, bf16>::value;
 
 template <typename T>
 size_t smem_bytes(int L, bool backward) {

@@ -19,10 +19,7 @@
 //         while TF32 is off): q, k, v in shared memory, the (L, L) scores
 //         recomputed per query, fc + LN1 + FFN + LN2 a row per warp with the
 //         weights read through L1/L2.
-// A build with -DS2S_FFT_BLOCK_CUDA_CORES=1 (scripts/profile_torch_fft_block.py
-// makes one, the package never does) sends bf16 through the CUDA-core body
-// too, to time the two designs side by side. Ragged B needs nothing: the grid
-// has one block per row.
+// Ragged B needs nothing: the grid has one block per row.
 //
 // Softmax: the argument `exact` picks the exact row max (the TPU kernel's head
 // loop), else the per-head Cauchy–Schwarz bound (its packed form); the caller
@@ -40,15 +37,11 @@
 
 #include "fft_block_body.cuh"
 
-#ifndef S2S_FFT_BLOCK_CUDA_CORES
-#define S2S_FFT_BLOCK_CUDA_CORES 0
-#endif
-
 namespace {
 
 using namespace s2s;
 
-// ---- the CUDA-core body (f32; bf16 in the comparison build) ----------------
+// ---- the CUDA-core body (f32) -----------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -190,11 +183,7 @@ int launch_pair_mma(const void* x, void* out, void* const* p, int B, int L, floa
 extern "C" int s2s_fft_block(const void* x, void* out, void* const* weights, int B, int L,
                              int dtype, float inv_temp, int exact, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if S2S_FFT_BLOCK_CUDA_CORES
-  if (dtype == 0) return launch<__nv_bfloat16>(x, out, weights, B, L, inv_temp, exact, s);
-#else
   if (dtype == 0) return launch_mma(x, out, weights, B, L, inv_temp, exact, s);
-#endif
   if (dtype == 1) return launch<float>(x, out, weights, B, L, inv_temp, exact, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -203,11 +192,7 @@ extern "C" int s2s_fft_block(const void* x, void* out, void* const* weights, int
 extern "C" int s2s_fft_block_pair(const void* x, void* out, void* const* weights, int B, int L,
                                   int dtype, float inv_temp, int exact, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if S2S_FFT_BLOCK_CUDA_CORES
-  if (dtype == 0) return launch_pair<__nv_bfloat16>(x, out, weights, B, L, inv_temp, exact, s);
-#else
   if (dtype == 0) return launch_pair_mma(x, out, weights, B, L, inv_temp, exact, s);
-#endif
   if (dtype == 1) return launch_pair<float>(x, out, weights, B, L, inv_temp, exact, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,7 @@
 // One post-LN FFT block for one batch row on the CUDA cores, as device
 // functions: the body of fft_block.cu's float32 kernels (one block and the
-// pair; bfloat16 takes block_mma.cuh's tensor-core body, except in a build
-// with -DS2S_FFT_BLOCK_CUDA_CORES=1) and of fft_block_variants.cu's float32
-// profiling kernels (bfloat16 too in a build with
-// -DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1).
+// pair; bfloat16 takes block_mma.cuh's tensor-core body) and of
+// fft_block_variants.cu's float32 profiling kernels.
 //
 //   q/k/v = cast(x Wq + bq) ...   (compute-dtype operands, f32 accumulation)
 //   ctx   = softmax(q kᵀ / √d_k) v   per head, 8 heads of d_k = 8

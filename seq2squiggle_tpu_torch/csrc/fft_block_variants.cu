@@ -41,10 +41,7 @@
 // does: the timing kernels with one thread per query walking the eight heads
 // (a thread owns a whole query, so the stages sum their per-head results over
 // the heads in f32, in head order), the cuts with one (head, query) item per
-// thread. A build with -DS2S_FFT_BLOCK_VARIANTS_CUDA_CORES=1
-// (scripts/profile_torch_block_variants.py makes one, the package never does)
-// sends bfloat16 a, b, c, d and the stages through the CUDA-core kernels too,
-// to time the two designs in one call.
+// thread.
 //
 // Bound: as the fused block, operations (41.5 GFLOP per (1024, 250, 64)
 // block) against ~66 MB of activations; what holds the tensor-core body is
@@ -54,10 +51,6 @@
 // cudaGetLastError() after the launch.
 
 #include "fft_block_body.cuh"
-
-#ifndef S2S_FFT_BLOCK_VARIANTS_CUDA_CORES
-#define S2S_FFT_BLOCK_VARIANTS_CUDA_CORES 0
-#endif
 
 namespace {
 
@@ -543,11 +536,7 @@ int launch(int mode, const void* x, void* out, void* const* p, int B, int L, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the sinks read eight key columns
   if (mode > STAGE_PROJ && L < DK) return (int)cudaErrorInvalidValue;
-#if S2S_FFT_BLOCK_VARIANTS_CUDA_CORES
-  if (dtype == 0) return launch_any<__nv_bfloat16>(mode, x, out, p, B, L, inv_temp, s);
-#else
   if (dtype == 0) return launch_mode_mma(mode, x, out, p, B, L, inv_temp, s);
-#endif
   if (dtype == 1) return launch_any<float>(mode, x, out, p, B, L, inv_temp, s);
   return (int)cudaErrorInvalidValue;
 }

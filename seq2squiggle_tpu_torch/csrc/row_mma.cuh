@@ -36,15 +36,6 @@ namespace s2s {
 
 using bf16 = __nv_bfloat16;
 
-// Two choices of the attention sweep made by measurement
-// (scripts/profile_torch_attn_core.py builds attn_core.cu with the other
-// values and times them in turns; PERF.md has the numbers): the exp as
-// ex2.approx on base-2 exponents (1: libm's expf on natural ones, the same in
-// the forward and both sweeps of the backward).
-#ifndef S2S_ATTN_CORE_EXPF
-#define S2S_ATTN_CORE_EXPF 0
-#endif
-
 // Profiling cuts of the attention and of the block: the TPU kernel's `ablate`
 // argument (fft_block.py::fused_fft_block) and variant d of its timing
 // kernels, instantiated only by fft_block_variants.cu. CUT_NONE is the block
@@ -68,8 +59,9 @@ enum Cut : int {
 };
 
 constexpr int TILE = 16;                  // rows a warp owns; keys per step
-// exponents are kept in units of 1/EXP_UNIT: base 2 for ex2.approx
-constexpr float EXP_UNIT = S2S_ATTN_CORE_EXPF ? 1.f : 1.4426950408889634f;
+// exponents are kept in units of 1/EXP_UNIT = 1/log2(e): base 2 for
+// ex2.approx, which beat libm's expf on natural ones (attn_core.cu's header)
+constexpr float EXP_UNIT = 1.4426950408889634f;
 constexpr uint32_t ONES2 = 0x3F803F80u;   // two bf16 ones
 
 __host__ __device__ inline int pad_tile(int L) { return (L + TILE - 1) / TILE * TILE; }
@@ -142,13 +134,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 __device__ __forceinline__ float ex2(float x) {
-#if S2S_ATTN_CORE_EXPF
-  return expf(x);
-#else
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-#endif
 }
 
 // Two neighbouring values of e = exp(s/√d_k − shift), rounded to bf16 and

@@ -25,6 +25,8 @@ ctx by more than that bar.
 One module fixture makes the 40 Pallas calls, four compiles at a time.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import math
 import os
 import pathlib

@@ -16,6 +16,8 @@ there too.
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,8 @@ are the JAX package's init (seed 0). Bars:
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

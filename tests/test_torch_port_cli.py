@@ -5,6 +5,8 @@ so are several devices: in one process, and over processes with `train --tp`."""
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import re
 
 from click.testing import CliRunner

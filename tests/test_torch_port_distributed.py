@@ -33,6 +33,8 @@ it checks one):
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import functools
 import json
 import os

@@ -13,6 +13,8 @@ Bars (test_pallas.py:26-65): float32 rtol 2e-3 / atol 2e-4; bfloat16 within
 shape, so a module fixture makes all 64 at once, four compiles at a time.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import os
 from concurrent.futures import ThreadPoolExecutor
 

@@ -7,6 +7,8 @@ module of the JAX package.
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import datetime as _datetime
 import importlib
 import pathlib
@@ -219,8 +221,7 @@ def test_native_codec_caches_apart():
 
 def _port_files():
     files = sorted((ROOT / "seq2squiggle_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py",
-                    ROOT / "scripts" / "profile_torch_block_variants.py"]
+    return files + [ROOT / "chip_smoke.py", *sorted(ROOT.glob("scripts/profile_torch_*.py"))]
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)")

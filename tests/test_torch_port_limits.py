@@ -35,6 +35,8 @@ the wrappers: the largest L with bytes(L) <= 232,448, bytes being
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import re
 
 import pytest

@@ -8,6 +8,8 @@ integers and the same f32 comparison (uniform in [0, 1) is f exactly, with
 no fused multiply-add to round), so there is no tolerance anywhere.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import pathlib
 import re
 

@@ -7,6 +7,8 @@ and heads are within rtol 1e-4 / atol 1e-5 in float32 and within 4 bf16 ULPs
 of max|ref| in bfloat16.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import pathlib
 
 import jax

@@ -12,6 +12,8 @@ reads. Runs without amplitude noise and sampled durations are held to equal
 samples on all but 0.1 % as well (the decoder's float32 sums differ in order).
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import pathlib
 
 import numpy as np

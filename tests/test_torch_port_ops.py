@@ -13,6 +13,8 @@ the Cauchy–Schwarz underflow input of test_pallas.py. Training: dropout
 values and in every gradient within rtol 5e-4 / atol 1e-4 (float32).
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import pathlib
 
 import jax

@@ -11,6 +11,8 @@ to the JAX package's and samples within 1 count on all but 0.1 %, and equal
 bit for bit to the port's own `pallas_pair: false`.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import functools
 import pathlib
 

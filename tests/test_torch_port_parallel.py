@@ -37,6 +37,8 @@ Bars:
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import pathlib
 
 import jax

@@ -5,7 +5,7 @@ Bars:
   - the stage timers hold every key the JAX package's simulate_run returns
     for the same run (SEQ2SQUIGGLE_TPU_TIMERS=1);
   - seq2squiggle-h2d, -fetch and -decode are alive during a run, and no
-    seq2squiggle-* thread is alive after it;
+    seq2squiggle-* thread it started is alive after it;
   - a run whose decode is slowed (so the queues fill) writes records equal
     to an unslowed run's, at auto and raw, and holds exactly as many batches
     in flight as its queues allow;
@@ -19,10 +19,14 @@ Bars:
     thread is left behind; each case has a time limit of its own.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import json
 import pathlib
+import queue
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -67,8 +71,13 @@ def _records(path):
     return [(r["read_id"], r["signal"].astype(np.int64)) for r in read_slow5(str(path))[1]]
 
 
-def _left_behind():
-    return [t.name for t in threading.enumerate() if t.name.startswith("seq2squiggle-")]
+def _left_behind(before=()):
+    """The seq2squiggle-* threads alive now that were not in `before`, the
+    threads alive when the run started: a test of the JAX package that ran
+    earlier in the same worker can leave its own `seq2squiggle-batch-prefetch`
+    thread behind, which is not this run's."""
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("seq2squiggle-") and t not in before]
 
 
 def _run(fasta, tmp_path, name, device=CPU, **over):
@@ -84,11 +93,12 @@ def _run(fasta, tmp_path, name, device=CPU, **over):
         except BaseException as exc:  # raised again below, on the test's thread
             result["error"] = exc
 
+    before = set(threading.enumerate())
     thread = threading.Thread(target=target, daemon=True)
     thread.start()
     thread.join(RUN_LIMIT_S)
     assert not thread.is_alive(), f"simulate_run still running after {RUN_LIMIT_S} s"
-    assert not _left_behind(), _left_behind()
+    assert not _left_behind(before), _left_behind(before)
     if "error" in result:
         raise result["error"]
     return result["stats"], _records(out)
@@ -134,6 +144,22 @@ def _slow_decode(mp, seen=None):
     mp.setattr(tsimulate, "unframe_wire", slow)
 
 
+def _count_decode_takes(mp, taken):
+    """Count each batch the decode thread takes off its queue, inside the
+    queue's lock as the item leaves it: no stage can move into the freed
+    slot before the count. (The end of the run, None, is not a batch.)"""
+
+    class Counted(queue.Queue):
+        def _get(self):
+            item = super()._get()
+            if item is not None and threading.current_thread().name == "seq2squiggle-decode":
+                taken.append(1)
+            return item
+
+    mp.setattr(tsimulate, "queue", types.SimpleNamespace(
+        Queue=Counted, Empty=queue.Empty, Full=queue.Full))
+
+
 def _assert_equal(got, want):
     assert [r for r, _ in got] == [r for r, _ in want] and len(got) > 0
     for (_, a), (_, b) in zip(got, want):
@@ -172,7 +198,8 @@ def test_slowed_decode_writes_the_same_records(fasta, ref, tmp_path, monkeypatch
     monkeypatch.setattr(tsimulate, "H2D_DEPTH", 1)
     monkeypatch.setattr(tsimulate, "PIPELINE_DEPTH", 2)
     decoded, ahead = [], []
-    _slow_decode(monkeypatch, decoded)
+    _slow_decode(monkeypatch, [])
+    _count_decode_takes(monkeypatch, decoded)
     step = tsimulate.predict_step_sharded
     dispatched = [0]
 

@@ -12,6 +12,8 @@ Bars:
     the decoder output, scaled to counts, plus the rounding step).
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import math
 import pathlib
 

@@ -6,6 +6,8 @@ bit-equal; normal draws are within 1 f32 ULP (the port mirrors XLA's FMA
 contraction, log1p and erfinv, and is bit-equal in practice).
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

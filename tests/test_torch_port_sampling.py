@@ -8,6 +8,8 @@ within rtol 1e-5 on >= 99.9 % of draws and equal after round() on
 >= 99.9 % (XLA's and torch's exp may differ by ULPs; XLA flushes subnormals).
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import pathlib
 import re
 

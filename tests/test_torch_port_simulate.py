@@ -7,6 +7,8 @@ read the same length, and int16 samples equal except |Δ| <= 1 on <= 0.1 %
 (the predict_step float32 bar).
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import os
 import pathlib
 import subprocess

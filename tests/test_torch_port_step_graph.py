@@ -24,6 +24,8 @@ device scalars, at least as close to the CPU's update as the update with
 Python numbers was.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import copy
 
 import numpy as np

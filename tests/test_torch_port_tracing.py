@@ -17,6 +17,8 @@ Bars:
     `train.masks` children at dropout 0.2 and none at dropout 0.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import collections
 import pathlib
 import threading

@@ -17,6 +17,8 @@ Inputs come from numpy seeds and cross as numpy arrays. Tolerances:
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import json
 import pathlib
 import sys

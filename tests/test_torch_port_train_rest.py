@@ -17,6 +17,8 @@ each train_run of the JAX package compiles its steps anew, ~15 s on a CPU.
 
 from __future__ import annotations
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import collections
 import json
 import logging

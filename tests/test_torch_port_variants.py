@@ -20,6 +20,8 @@ eight heads, |values| up to ~120 here) that the two frameworks add in
 different orders: an entry near 0 carries the rounding of its large terms.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import functools
 import importlib.util
 import logging

@@ -18,6 +18,8 @@ Bars:
   - two shards' records together equal the unsharded run's.
 """
 
+import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
+
 import functools
 import pathlib
 
