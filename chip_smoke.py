@@ -245,7 +245,17 @@ Phases (any failure raises and the script exits non-zero):
      return, its wall with a synchronize and, from a profile of 5 steps,
      the card's busy time, device events, kernel and graph launches a step,
      graphed and eager in interleaved rounds; phase 19's `train` command as
-     1 eager step, 1 capture and 19 replays.
+     1 eager step, 1 capture and 19 replays;
+ 21. the predict output written behind the loop: one job over the
+     `r10-predict-genome` cell's settings (a 48,502 bp genome from a seed,
+     WRITE_BEHIND_READS reads of mean 5 kb, batch 1024, samplers on, auto
+     wire, BLOW5, the default export threshold) with the spans on, its
+     counters `export.behind_samples` and `export.final_samples`, the share
+     left for `finalize` and the `finalize` and `write` timers printed,
+     some samples written behind, and its BLOW5 records (ids, signals and
+     every field) equal to those of the same job at
+     `export_every_n_samples=inf` (one flush in `finalize`, no writer
+     thread).
 
 On one card the train step is a CUDA graph, so the `train` command (and
 `sweep`) runs each TrainStep's first step eagerly, captures the second and
@@ -331,6 +341,7 @@ MASK_CASES = (((512, 250, 64), None, 0), ((512, 16, 64), None, 0), ((37, 250, 64
               ((128, 250, 64), 512, 256))
 MASK_KEEPS = (0.8, 0.9)
 GRAPH_STEPS = 6  # phase 20: steps at the train batch before the batch of half its rows
+WRITE_BEHIND_READS = 30  # phase 21: the cell's job of 100 reads, cut to save time
 
 
 def log(msg: str) -> None:
@@ -3008,6 +3019,61 @@ def phase_graph(dev, smi, masks: dict) -> dict:
             "division": division, "times": times}
 
 
+def phase_write_behind(dev, smi) -> dict:
+    """Phase 21: one job at the predict cell's settings written behind the
+    loop, against the same job with every read written in `finalize`.
+    Returns the write-behind job's counters and timers."""
+    from seq2squiggle_tpu_torch.config import load_config
+    from seq2squiggle_tpu_torch.io.slow5 import read_slow5
+    from seq2squiggle_tpu_torch.runtime.simulate import simulate_run
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    runs = {}
+    os.environ["SEQ2SQUIGGLE_TPU_TIMERS"] = "1"
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            rng = np.random.default_rng(SEED)
+            fasta = pathlib.Path(tmp) / "genome.fasta"
+            fasta.write_text(">synthetic\n" + "".join(rng.choice(list("ACGT"), 48_502)) + "\n")
+            for every in (1_000_000, float("inf")):
+                out = pathlib.Path(tmp) / f"out-{every}.blow5"
+                stats = simulate_run(
+                    config=load_config(None), saved_weights=str(R10), fasta=str(fasta),
+                    read_input=False, n=WRITE_BEHIND_READS, r=5000, c=-1, out=str(out),
+                    profile="dna-r10-prom", dwell_mean=None, dwell_std=0.0, noise_std=2.0,
+                    noise_sampling=True, duration_sampling=True, distr="expon",
+                    predict_batch_size=BATCH, export_every_n_samples=every, min_noise=0.0,
+                    min_duration=3, seed=SEED, show_progress=False, wire_format="auto",
+                    slow5_press="zstd", device=dev)
+                runs[every] = stats, read_slow5(str(out))[1]
+    finally:
+        del os.environ["SEQ2SQUIGGLE_TPU_TIMERS"]
+    (stats, recs), (one_stats, one) = runs[1_000_000], runs[float("inf")]
+    t = stats["timers"]
+    behind, final = t.get("export.behind_samples", 0), t.get("export.final_samples", 0)
+    check(behind + final == stats["samples"] == one_stats["samples"],
+          f"phase 21: {behind} + {final} samples counted for {stats['samples']} simulated")
+    check(behind > 0, "phase 21: no sample was written behind the loop")
+    _check_records("phase 21", stats, [(r["read_id"], r["signal"]) for r in recs],
+                   WRITE_BEHIND_READS)
+    same = len(recs) == len(one) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) if k == "signal" else a[k] == b[k]
+                                     for k in a) for a, b in zip(recs, one))
+    check(same, "phase 21: the records written behind differ from one flush's")
+    got = {"behind_samples": behind, "final_samples": final,
+           "final_pct": 100.0 * final / stats["samples"],
+           "batches": -(-stats["chunks"] // BATCH),
+           "finalize_ms": 1e3 * t["finalize"], "one_flush_finalize_ms":
+           1e3 * one_stats["timers"]["finalize"],
+           "writer_write_ms": 1e3 * t["writer_write"],
+           "writer_write_cpu_ms": 1e3 * t["writer_write_cpu"],
+           "seconds": stats["seconds"], "one_flush_seconds": one_stats["seconds"]}
+    log(f"phase 21: {len(recs)} records equal to one flush's; {json.dumps(got)} "
+        f"[{smi}] ({time.perf_counter() - t_phase:.1f} s)")
+    return got
+
+
 def phase_pipeline(dev, main_recs, smi) -> dict:
     """Phase 17: the run loop's host threads and the per-shard launching
     threads on the card. Returns what it measured."""
@@ -3233,6 +3299,7 @@ def main() -> int:
     gamma = phase_gamma(dev, recs, smi)
     masks = phase_masks(dev, smi)
     phase_graph(dev, smi, masks)
+    phase_write_behind(dev, smi)
 
     # per predict batch the path runs the fused block twice at L=16 and twice at L=250
     bf16 = torch.bfloat16

@@ -50,6 +50,12 @@ class AsyncWriter:
     def filename(self):
         return self._writer.filename
 
+    @property
+    def idle(self) -> bool:
+        """Nothing is queued behind the flush the worker is writing now (if
+        any): a flush handed over now is at most one flush behind."""
+        return self._queue.empty()
+
     def _run(self):
         while True:
             item = self._queue.get()

@@ -19,6 +19,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from .. import tracing
 from .batcher import Segment
 
 logger = logging.getLogger("seq2squiggle_tpu_torch")
@@ -28,9 +29,13 @@ class StreamingExporter:
     """Accumulate per-read signal pieces; flush complete reads to a writer.
 
     export_every_n_chunks mirrors the reference's export_every_n_samples
-    (which counts chunks, model.py:247-250). All writers — BLOW5 and the
-    streaming POD5 container alike — flush on this cadence; float('inf')
-    remains available to defer everything to finalize().
+    (which counts chunks, model.py:247-250): the most chunks added between
+    two flushes. All writers — BLOW5 and the streaming POD5 container alike
+    — flush on this cadence; float('inf') remains available to defer
+    everything to finalize(). A caller may also flush between them
+    (simulate.py's write-behind). The samples handed to the writer go to the
+    counters `export.behind_samples` (before finalize) and
+    `export.final_samples` (in it), tracing.py.
     """
 
     def __init__(self, writer, export_every_n_chunks: float = 1_000_000):
@@ -78,10 +83,11 @@ class StreamingExporter:
         self.total_samples += int(flat.size)
         if self._chunks_since_flush >= self.export_every_n_chunks:
             self.flush()
-            self._chunks_since_flush = 0
 
-    def flush(self):
-        """Write all complete reads, preserving stream order."""
+    def flush(self, counter: str = "export.behind_samples"):
+        """Write all complete reads, preserving stream order, and add their
+        samples to `counter`."""
+        self._chunks_since_flush = 0
         if not self._ready:
             return
         ready_set = set(self._ready)
@@ -110,6 +116,7 @@ class StreamingExporter:
             off = np.zeros(len(ids) + 1, np.int64)
             np.cumsum(lens, out=off[1:])
             self.writer.write_flat(ids, flat, off)
+            tracing.count(counter, int(flat.size))
             logger.debug(
                 f"Flushed {len(ids)} reads to {self.writer.filename}"
             )
@@ -125,11 +132,12 @@ class StreamingExporter:
         self._ready = []
         self.total_reads += len(out)
         self.writer.write_batch(out)
+        tracing.count(counter, sum(int(a.size) for a in out.values()))
         logger.debug(f"Flushed {len(out)} reads to {self.writer.filename}")
 
     def finalize(self):
         """Flush everything (any read still open is treated as complete)."""
         ready = set(self._ready)
         self._ready.extend(r for r in self._order if r not in ready)
-        self.flush()
+        self.flush("export.final_samples")
         self.writer.close()

@@ -6,7 +6,7 @@ host memory, runs `predict_step` at the run's wire tier, and comes back as one
 framed uint8 buffer (runtime/predict.wire_layout) in one pinned copy;
 runtime/wire.py decodes it (the event tiers regenerate the amplitude noise on
 the host), StreamingExporter assembles reads and the AsyncWriter thread
-encodes and writes BLOW5/SLOW5 records.
+encodes and writes BLOW5/SLOW5 records as the reads finish, behind the loop.
 
 The run is the JAX package's pipeline of host threads, on a card and on the
 CPU alike: `seq2squiggle-h2d` prepares batches, pins them and copies them to
@@ -332,7 +332,16 @@ def simulate_run(
             read_idx_start, read_idx_step = shard_index, num_shards
             writer.read_index_start, writer.read_index_step = read_idx_start, read_idx_step
 
+        # Write-behind: the decode thread hands the ready reads to the writer's
+        # thread whenever it is idle, so the writing overlaps the loop and
+        # `finalize` is left with the reads of the last batches. BLOW5 and
+        # SLOW5 encode and compress each record on its own, with the per-read
+        # draws in stream order, so their bytes do not depend on how reads
+        # group into flushes; a POD5 flush is a record batch of the file, so
+        # POD5 keeps the chunk threshold's cadence.
+        write_behind = False
         if export_every_n_samples != float("inf"):
+            write_behind = isinstance(writer, BLOW5Writer)
             writer = AsyncWriter(writer)
         exporter = StreamingExporter(writer, export_every_n_samples)
 
@@ -439,6 +448,8 @@ def simulate_run(
                 exporter.add_flat(out, counts, batch.segments)
             else:
                 exporter.add_batch(out, counts, batch.segments)
+            if write_behind and writer.idle:
+                exporter.flush()
         if progress is not None:
             progress.update(sum(s.n_rows for s in batch.segments))
 

@@ -13,6 +13,8 @@ import datetime as _datetime
 import importlib
 import pathlib
 import re
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -58,9 +60,10 @@ def _batches(which, fasta):
         reads, 32, cfg["seq_kmer"], cfg["max_dna_len"]))
 
 
-def _blow5_bytes(which, fasta, tmp_path, press):
-    """Batches -> a seeded fake device step -> StreamingExporter ->
-    AsyncWriter -> BLOW5Writer; returns the file's bytes."""
+def _blow5_bytes(which, fasta, tmp_path, press, every=40, after_batch=None):
+    """Batches -> a seeded fake device step -> StreamingExporter (its
+    threshold `every` chunks) -> AsyncWriter -> BLOW5Writer; returns the
+    file's bytes. `after_batch(i, exporter, writer)` runs after batch i."""
     writers = mod(which, "io.writers")
     profiles = mod(which, "profiles")
 
@@ -72,18 +75,20 @@ def _blow5_bytes(which, fasta, tmp_path, press):
     old = writers.datetime
     writers.datetime = FixedClock
     try:
-        out = tmp_path / f"{which}-{press}.blow5"
+        out = tmp_path / f"{which}-{press}-{every}.blow5"
         writer = writers.BLOW5Writer(str(out), profiles.get_profile("dna-r10-prom"), False,
                                      "dna-r10-prom", False, np.random.default_rng(SEED),
                                      slow5_press=press)
         writer = mod(which, "runtime.async_writer").AsyncWriter(writer)
-        exporter = mod(which, "runtime.exporter").StreamingExporter(writer, 40)
+        exporter = mod(which, "runtime.exporter").StreamingExporter(writer, every)
         rng = np.random.default_rng(SEED)
-        for batch in _batches(which, fasta):
+        for i, batch in enumerate(_batches(which, fasta)):
             B = len(batch.read_idx)
             signal = rng.integers(-500, 1500, (B, 250)).astype(np.int16)
             counts = rng.integers(1, 250, B).astype(np.int32)
             exporter.add_batch(signal, counts, batch.segments)
+            if after_batch is not None:
+                after_batch(i, exporter, writer)
         exporter.finalize()
     finally:
         writers.datetime = old
@@ -205,6 +210,80 @@ def test_copied_host_module_matches_original(case, fasta, tmp_path):
     assert _equal(original, copy)
     if isinstance(original, (list, tuple)) and len(original):
         assert original[0] is not None  # the case produced something
+
+
+@pytest.fixture
+def counters(monkeypatch):
+    """The port's span recorder on and emptied; off and emptied after."""
+    from seq2squiggle_tpu_torch import tracing
+
+    monkeypatch.setenv(tracing.ENV, "1")
+    tracing.switch_from_env()
+    tracing.reset()
+    yield tracing
+    monkeypatch.undo()
+    tracing.switch_from_env()
+    tracing.reset()
+
+
+def _flush_when_idle(i, exporter, writer):
+    """runtime/simulate.py's write-behind, after each batch the decode adds."""
+    if writer.idle:
+        exporter.flush()
+
+
+def test_write_behind_writes_the_bytes_of_one_flush(fasta, tmp_path, counters):
+    """The port's exporter at the default threshold (1,000,000 chunks, never
+    reached), flushed whenever its writer's thread is idle, writes the bytes
+    that the JAX package writes in its one flush in finalize."""
+    one, _ = _blow5_bytes("jax", fasta, tmp_path, "zlib", every=1_000_000)
+    behind, _ = _blow5_bytes("port", fasta, tmp_path, "zlib", every=1_000_000,
+                             after_batch=_flush_when_idle)
+    assert behind == one
+    _, recs = mod("port", "io.slow5").read_slow5(str(tmp_path / "port-zlib-1000000.blow5"))
+    got = counters.totals().counts
+    assert got["export.behind_samples"] > 0
+    assert (got["export.behind_samples"] + got.get("export.final_samples", 0)
+            == sum(len(r["signal"]) for r in recs))
+
+
+def test_write_behind_collects_reads_while_the_writer_is_busy(fasta, tmp_path, monkeypatch):
+    """The writer's first write waits on an Event through batch HELD of 11
+    (reads finish in batches 0, 3, 8, 9 and 10): the decode's adds go on,
+    at most one flush waits behind the one being written, the reads that
+    finish meanwhile go out together at the next idle moment, in stream
+    order, and the file's bytes are those of one flush."""
+    HELD = 9
+    writers = mod("port", "io.writers")
+    write_flat = writers.BLOW5Writer.write_flat
+    release = threading.Event()
+    flushes = []  # the read ids of each write, in the writer's order
+
+    def held(self, read_ids, flat, sample_off):
+        flushes.append(list(read_ids))
+        if len(flushes) == 1:
+            assert release.wait(60), "the writer was never released"
+        return write_flat(self, read_ids, flat, sample_off)
+
+    def after_batch(i, exporter, writer):
+        _flush_when_idle(i, exporter, writer)
+        if i == HELD:
+            assert flushes[:1] == [["id0"]] and writer._queue.qsize() <= 1
+            release.set()
+            deadline = time.monotonic() + 60
+            while not writer.idle and time.monotonic() < deadline:
+                time.sleep(0.005)
+            assert writer.idle
+
+    monkeypatch.setattr(writers.BLOW5Writer, "write_flat", held)
+    behind, _ = _blow5_bytes("port", fasta, tmp_path, "zlib", every=1_000_000,
+                             after_batch=after_batch)
+    one, _ = _blow5_bytes("jax", fasta, tmp_path, "zlib", every=1_000_000)
+    assert behind == one
+    assert [rid for ids in flushes for rid in ids] == [f"id{i}" for i in range(6)]
+    # four batches finished reads while the writer was held, and at most two
+    # flushes were handed over then, so a later flush carries several
+    assert len(flushes) <= 3 and any(len(ids) > 1 for ids in flushes[1:])
 
 
 def test_version_is_the_jax_packages():

@@ -15,12 +15,17 @@ Bars:
     every batch, in inference mode; the records are bit-identical to one
     device's, and a --trace-dir trace holds those threads' ops;
   - a failure in any stage (the reads, the decoder, a shard's step, the
-    writer) is raised by simulate_run with its type and message, and no
-    thread is left behind; each case has a time limit of its own.
+    writer, also on a flush handed to it during the loop) is raised by
+    simulate_run with its type and message, and no thread is left behind;
+    each case has a time limit of its own;
+  - at the default export threshold BLOW5 and SLOW5 reads go to the writer
+    during the loop (write-behind) and the file's bytes are those of one
+    flush at the end; POD5 keeps that one flush.
 """
 
 import torch_port_threads  # noqa: F401  (torch's threads: one share of the cores a worker)
 
+import datetime
 import json
 import pathlib
 import queue
@@ -36,6 +41,8 @@ from seq2squiggle_tpu.config import load_config
 from seq2squiggle_tpu.io.slow5 import read_slow5
 from seq2squiggle_tpu.runtime.simulate import simulate_run as jax_simulate_run
 from seq2squiggle_tpu_torch.io import writers as twriters
+from seq2squiggle_tpu_torch.io.pod5_native import read_pod5 as port_read_pod5
+from seq2squiggle_tpu_torch.runtime import exporter as texporter
 from seq2squiggle_tpu_torch.runtime import predict as tpredict
 from seq2squiggle_tpu_torch.runtime import simulate as tsimulate
 
@@ -68,6 +75,9 @@ def _run_kwargs(fasta, out, **over):
 
 
 def _records(path):
+    if str(path).endswith(".pod5"):
+        return [(r["read_id"], np.asarray(r["signal"], np.int64))
+                for r in port_read_pod5(str(path))["reads"]]
     return [(r["read_id"], r["signal"].astype(np.int64)) for r in read_slow5(str(path))[1]]
 
 
@@ -80,10 +90,10 @@ def _left_behind(before=()):
             if t.name.startswith("seq2squiggle-") and t not in before]
 
 
-def _run(fasta, tmp_path, name, device=CPU, **over):
+def _run(fasta, tmp_path, name, device=CPU, ext=".blow5", **over):
     """simulate_run in a thread of its own, held to RUN_LIMIT_S: a hang
     fails the test instead of stalling the suite. Returns (stats, records)."""
-    out = tmp_path / f"{name}.blow5"
+    out = tmp_path / f"{name}{ext}"
     result = {}
 
     def target():
@@ -350,3 +360,53 @@ def test_a_failing_stage_is_raised_and_stops_every_thread(short_fasta, tmp_path,
     with pytest.raises(Injected, match=message):
         _run(short_fasta, tmp_path, "failing", device=[CPU] * n_dev, predict_batch_size=4 * n_dev,
              export_every_n_samples=1)
+
+
+def test_a_writer_failing_behind_the_loop_is_raised(fasta, tmp_path, monkeypatch):
+    """At the default threshold the writer's first write is a flush that the
+    decode thread handed to it during the loop; its failure is raised by
+    simulate_run and every thread stops."""
+    finalize, finalizing, during_loop = texporter.StreamingExporter.finalize, [], []
+
+    def watched(self):
+        finalizing.append(1)
+        return finalize(self)
+
+    def failing(self, *args, **kw):
+        during_loop.append(not finalizing)
+        raise Injected("the writer failed")
+
+    monkeypatch.setattr(texporter.StreamingExporter, "finalize", watched)
+    monkeypatch.setattr(twriters.BLOW5Writer, "write_flat", failing)
+    with pytest.raises(Injected, match="the writer failed"):
+        _run(fasta, tmp_path, "failing_behind", device=[CPU] * 2)
+    assert during_loop == [True]
+
+
+class _FixedClock(datetime.datetime):
+    @classmethod
+    def now(cls, tz=None):
+        return cls(2024, 1, 2, 3, 4, 5)
+
+
+@pytest.mark.parametrize("ext", [".blow5", ".slow5", ".pod5"])
+def test_write_behind_by_output_format(fasta, tmp_path, monkeypatch, ext):
+    """At the default threshold (1,000,000 chunks, never reached here) the
+    decode thread hands BLOW5 and SLOW5 reads to the idle writer during the
+    loop (`export.behind_samples`), and the file's bytes are those of one
+    flush in finalize (`inf`: no writer thread); POD5, whose flushes are
+    record batches of the file, keeps its one flush in finalize."""
+    monkeypatch.setattr(twriters, "datetime", _FixedClock)
+    monkeypatch.setenv("SEQ2SQUIGGLE_TPU_TIMERS", "1")
+    stats, recs = _run(fasta, tmp_path, "behind", ext=ext)
+    one_stats, one = _run(fasta, tmp_path, "one", ext=ext, export_every_n_samples=float("inf"))
+    _assert_equal(recs, one)
+    got = stats["timers"]
+    final = got.get("export.final_samples", 0)
+    assert got.get("export.behind_samples", 0) + final == stats["samples"] == one_stats["samples"]
+    assert one_stats["timers"]["export.final_samples"] == stats["samples"]
+    if ext == ".pod5":
+        assert "export.behind_samples" not in got
+    else:
+        assert got["export.behind_samples"] > 0
+        assert (tmp_path / f"behind{ext}").read_bytes() == (tmp_path / f"one{ext}").read_bytes()

@@ -7,8 +7,10 @@ Bars:
     only the last RING; with the switch off nothing is recorded;
   - simulate_run with SEQ2SQUIGGLE_TPU_TIMERS=1: every per-batch span once a
     batch with ids 0..n-1 (the launching thread's `dispatch` and its input
-    wait once more, id n: the wait for the end of the batches); the timers
-    keep their keys and are numbers; the `dispatch` spans cover the loop's
+    wait once more, id n: the wait for the end of the batches); the
+    writer's `write` a flush, ids 0.., the first during the loop (the
+    counters `export.behind_samples` and `export.final_samples` sum to the
+    job's samples); the timers keep their keys and are numbers; the `dispatch` spans cover the loop's
     wall to within 2 %; each wait and `dispatch_offcpu` lies in [0, wall];
   - under a CPU torch.profiler the spans are ranges among its events, on
     every thread, the job's set-up one of them; where the profiler records
@@ -162,7 +164,11 @@ def test_every_batch_has_its_spans(predicted):
         assert [r.id for r in rec[name]] == list(range(n)), name
     for name in ("dispatch", "dispatch.input_wait"):
         assert [r.id for r in rec[name]] == list(range(n + 1)), name
-    assert [r.id for r in rec["write"]] == [0]
+    writes = [r.id for r in rec["write"]]
+    assert writes == list(range(len(writes))) and 1 <= len(writes) <= n + 1
+    assert {r.thread for r in rec["write"]} == {"seq2squiggle-export"}
+    behind = stats["timers"]["export.behind_samples"]
+    assert 0 < behind <= behind + stats["timers"].get("export.final_samples", 0) == stats["samples"]
     for name in ("job.setup", "h2d.loop", "dispatch.loop", "finalize"):
         assert len(rec[name]) == 1, name
     assert len(rec["sampling"]) == n  # one Gamma draw a batch, noise on the host
