@@ -56,6 +56,7 @@ class Cell:
         self.kept = None  # (job index, job seed, path, stats) of the judged job
         self.bytes_written = 0
         self.log = []  # (job, chunks, samples, wall s) of the window's jobs
+        self.result_fields = {}  # put in the result line
 
     def _job(self, index: int, seed: int, n_reads: int, reads_file: str = ""):
         """One job over `n_reads` reads drawn from the genome, or in read
@@ -153,6 +154,9 @@ class Cell:
         from ..reference import model, predict_ref
 
         index, seed, path, stats = self.kept
+        # the compression the writer used: zstd falls back to zlib where
+        # python-zstandard is missing
+        self.result_fields = {"blow5_record_press": slow5_reader.record_press(path)}
         program = slow5_reader.signals_by_index(path)
         file_samples = sum(len(s) for s in program.values())
         t = self.traffic

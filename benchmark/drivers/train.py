@@ -9,9 +9,10 @@ It then drives that object through its first `checked_steps` steps by the
 window's own call and feed (the outputs check replays them), and hands the
 same object to the window: batches from `train/data.py` (`ChunkDataset`,
 `epoch_batches`, shuffled, one epoch after another), placed as `train_run`
-places them (pinned, non-blocking), the step's key `fold_in(key, step)`, a
-host read of the metrics every `metrics_every` steps. The window ends with
-a synchronize.
+places them (pinned, non-blocking), the step's key `fold_in(key, step)`
+derived as `train_run` derives it (the program's threefry kernel, one
+launch on a card), a host read of the metrics every `metrics_every` steps.
+The window ends with a synchronize.
 """
 
 from __future__ import annotations
@@ -57,14 +58,14 @@ class Cell:
                                              shuffle=bool(self.traffic["shuffle"]))
 
     def _step(self):
-        from seq2squiggle_tpu_torch import prng
+        from seq2squiggle_tpu_torch.ops import threefry
 
         t0 = time.perf_counter()
         host_batch, host_mask = self._next()
         batch, mask = self._place(host_batch, host_mask)
         self.data_s += time.perf_counter() - t0
         metrics = self.step_fn(self.params, self.opt_state, batch, mask,
-                               prng.fold_in(self.key, self.step))
+                               threefry.fold_in(self.key, self.step))
         if self.step % int(self.traffic["metrics_every"]) == 0:
             host = {k: float(v) for k, v in metrics.items()}
             if not math.isfinite(host["total_loss"]):

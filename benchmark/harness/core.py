@@ -157,6 +157,7 @@ def _run(bench, cell, cfg_file, traffic, limits, seed, seconds, trace, t_start, 
         dev_info["window_s"] = float(tr["window_s"])
         result["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
     result["written_bytes"] = int(getattr(driver, "bytes_written", 0))
+    result.update(getattr(driver, "result_fields", {}))
     result["checks"] = checks
     found = banned_modules_loaded()
     if found:

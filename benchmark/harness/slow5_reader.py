@@ -23,6 +23,7 @@ import numpy as np
 
 _MAGIC = b"BLOW5\x01"
 _EOF = b"5WOLB"
+RECORD_PRESS = {0: "none", 1: "zlib", 3: "zstd"}  # the lead-in's record compression byte
 
 
 class _Zstd:
@@ -105,6 +106,15 @@ def read_blow5(path: str) -> Iterator[Tuple[str, np.ndarray]]:
         else:
             raise ValueError(f"signal compression {signal_press} is not read here")
         yield read_id, signal
+
+
+def record_press(path: str) -> str:
+    """The record compression a BLOW5 file was written with, from its lead-in."""
+    with open(path, "rb") as fh:
+        lead = fh.read(10)
+    if lead[:6] != _MAGIC:
+        raise ValueError(f"{path}: not a BLOW5 file")
+    return RECORD_PRESS.get(lead[9], f"method {lead[9]}")
 
 
 def read_index(read_id: str) -> int:

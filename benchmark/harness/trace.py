@@ -3,9 +3,11 @@
 `Traced` profiles the CPU (every thread's operations, so the program's own
 threads are seen) and the card. `reduce` turns its events into what the
 per-layer metrics read: the device's busy time (the union of its kernel,
-copy and set intervals), the traced window, the host's kernel launches,
-device time by kernel name, and the longest idle gaps of the device, each
-named by the innermost host operation that was running at the gap's middle.
+copy and set intervals), the traced window, the host's launches (of a
+kernel or of a CUDA graph: a graph's replay is one launch), the kernels
+the device ran (a graph's each; copies and sets are not kernels), device
+time by kernel name, and the longest idle gaps of the device, each named
+by the innermost host operation that was running at the gap's middle.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
-LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cuGraphLaunch")
+NOT_KERNELS = ("Memcpy", "Memset")  # the profiler's names of the device's copies and sets
 
 
 def union_seconds(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -79,7 +83,7 @@ class Traced:
 
 def reduce(events, window_s: float) -> Dict:
     device, host = [], []
-    launches = 0
+    launches = kernels = 0
     by_kernel: Dict[str, float] = defaultdict(float)
     for e in events:
         name = e.name()
@@ -88,6 +92,8 @@ def reduce(events, window_s: float) -> Dict:
             d = e.duration_ns() * 1e-9
             device.append((s, s + d))
             by_kernel[name] += d
+            if not name.startswith(NOT_KERNELS):
+                kernels += 1
         else:
             if name in LAUNCH_NAMES:
                 launches += 1
@@ -116,7 +122,7 @@ def reduce(events, window_s: float) -> Dict:
         label = (best[2] if best else f"after {last[2]}" if last else "no host operation")
         idle.append([label, length])
     top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:10]
-    return {"busy_s": busy, "window_s": window_s, "launches": launches,
+    return {"busy_s": busy, "window_s": window_s, "launches": launches, "kernels": kernels,
             "kernel_s": dict(by_kernel),
             "device_ops": [[short_name(k), v] for k, v in top], "idle_gaps": idle}
 

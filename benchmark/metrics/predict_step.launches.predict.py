@@ -1,5 +1,6 @@
-"""Kernel launches a batch, from the profiler's host runtime events
-(cudaLaunchKernel and its kin) over the traced job's batches."""
+"""Launches a batch, from the profiler's host runtime events over the
+traced job's batches: of kernels (cudaLaunchKernel and its kin) and of
+CUDA graphs (cudaGraphLaunch: a replay is one)."""
 
 
 def read(run):

@@ -9,4 +9,4 @@ def read(run):
     steps = window_steps(run)
     if not steps:
         return None
-    return 1e3 * sum(s.seconds for s, _ in steps) / len(steps)
+    return 1e3 * sum(s.seconds for s in steps) / len(steps)

@@ -1,5 +1,6 @@
-"""Kernel launches a training step, from the profiler's host runtime events
-over the traced steps."""
+"""Launches a training step, from the profiler's host runtime events over
+the traced steps: of kernels (cudaLaunchKernel and its kin) and of CUDA
+graphs (cudaGraphLaunch: a replayed step is one)."""
 
 
 def read(run):
